@@ -1,0 +1,18 @@
+"""Grok-1 314B — MoE 8 experts top-2.  [hf:xai-org/grok-1; unverified]
+
+64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072, every layer MoE.
+"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="grok-1-314b",
+    family="moe",
+    num_layers=64,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=32768,
+    vocab_size=131072,
+    head_dim=128,
+    moe=MoEConfig(num_experts=8, top_k=2, d_expert=32768, every=1),
+)

@@ -1,0 +1,85 @@
+"""The port stands alone: it imports neither jax nor the reference package,
+and it calls no library attention / norm in place of its kernels."""
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    for p in PKG.rglob("*.py") if p.name != "__init__.py"
+)
+
+_PROBE = """
+import importlib, sys
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+for name in {names!r}:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+assert "triton" not in sys.modules
+print("clean", len({names!r}))
+"""
+
+
+def _probe(names):
+    code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT), names=names)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=str(ROOT))
+
+
+def test_port_has_the_expected_modules():
+    for must in ("repro_torch.kernels.ops", "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.decode_attention", "repro_torch.kernels.rmsnorm",
+                 "repro_torch.kernels._build", "repro_torch.models.lm",
+                 "repro_torch.models.convert", "repro_torch.serve.serve_step",
+                 "repro_torch.launch.serve", "repro_torch.tuning.tundb",
+                 "repro_torch.tuning.cache", "repro_torch.configs.registry"):
+        assert must in MODULES
+
+
+def test_every_port_module_imports_without_jax_or_reference():
+    out = _probe(MODULES + ["repro_torch", "repro_torch.kernels",
+                            "repro_torch.models", "repro_torch.configs"])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def test_chip_smoke_imports_without_jax_or_reference_and_does_no_work():
+    out = _probe(["chip_smoke"])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean 1"  # nothing printed at import
+
+
+def test_chip_smoke_fails_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script would run in full")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=str(ROOT))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("needle", ["scaled_dot_product_attention",
+                                    "torch.compile", "F.rms_norm", "rms_norm(",
+                                    "import jax", "from jax", "from repro.",
+                                    "import repro."])
+def test_port_sources_do_not_mention(needle):
+    hits = [str(p.relative_to(ROOT)) for p in PKG.rglob("*")
+            if p.suffix in (".py", ".cu", ".cuh") and needle in p.read_text()]
+    assert hits == []
+
+
+def test_cuda_sources_are_there_and_plain_c():
+    for stem in ("flash_attention", "decode_attention"):
+        text = (PKG / "kernels" / "csrc" / f"{stem}.cu").read_text()
+        assert 'extern "C"' in text and "cudaGetLastError" in text
+        assert "torch/" not in text and "ATen" not in text
