@@ -8,9 +8,13 @@ Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
 ``qwen2-0.5b`` at its published width through the port's normal entry point
 (``repro_torch.launch.serve``) and checks, by the kernels' launch counts,
-that the served path really went through them.  Each phase prints one JSON
-line; any failure ends the run with a non-zero exit code.  The last line
-is ``{"ok": true, "device": {...}}``.
+that the served path really went through them.  The ``sweep`` phase closes
+the tuning loop: it tunes all five kernels at full-width shapes
+(``repro_torch.benchmarks.kernel_sweep``), persists the answers in a
+``TuningDB``, re-runs warm (nothing is measured again) and serves the model
+with the DB, checking that the served kernels ran with the swept tiles.
+Each phase prints JSON lines; any failure ends the run with a non-zero exit
+code.  The last line is ``{"ok": true, "device": {...}}``.
 
 There is no CPU mode: without a card the script fails at once.
 """
@@ -31,10 +35,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
+# absolute = relative tolerance, or (absolute, relative): the reference tests'
 TOL = {
     "flash_attention": {"f32": 2e-5, "bf16": 2e-2},
     "decode_attention": {"f32": 2e-5, "bf16": 2e-2},
     "rmsnorm": {"f32": 1e-5, "bf16": 2e-2},
+    "ssm_scan": {"f32": 2e-4, "bf16": 2e-2},
+    "gla_scan": {"f32": (2e-4, 2e-3), "bf16": 2e-2},
 }
 
 # B, Sq, Sk, H, K, dh, causal, window — the reference's sweep table
@@ -47,9 +54,51 @@ SWEEP = [
     (1, 128, 128, 2, 2, 64, True, None),
 ]
 
+# B, S, D, N, chunk, block_d — the reference's ssm table, then ragged and
+# clamped knobs, a state size that is padded, the largest state size
+SSM_CASES = [
+    (1, 16, 8, 4, 8, 8),
+    (2, 50, 12, 8, 16, 8),
+    (1, 33, 24, 16, 8, 16),
+    (2, 64, 16, 4, 32, 4),
+    (2, 300, 600, 16, 128, 256),
+    (1, 40, 70, 5, 16, 32),
+    (1, 24, 40, 64, 8, 256),
+    (1, 20, 33, 33, 1000, 1000),
+]
+# B, S, H, dk, dv, chunk — the reference's gla table, then a padded key dim,
+# a value dim split over two blocks, the largest key dim, one step a chunk
+GLA_CASES = [
+    (1, 16, 2, 8, 8, 8),
+    (2, 45, 3, 8, 8, 16),
+    (1, 40, 4, 16, 16, 8),
+    (2, 70, 3, 24, 40, 32),
+    (1, 33, 2, 64, 600, 16),
+    (1, 50, 2, 128, 64, 64),
+    (1, 30, 1, 8, 8, 1),
+]
+
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--no-reduced", "--dtype", "bf16",
               "--requests", "16", "--prompt-len", "512", "--gen-len", "64",
               "--batch", "8"]
+
+# the sweep: all five kernels at the full width of models the repo supports
+SWEEP_SHAPES = {
+    # Jamba v0.1's Mamba mixer: d_inner = 2 x 4096, d_state 16
+    "ssm_scan": {"B": 2, "S": 2048, "D": 8192, "N": 16},
+    # RWKV-6 3B: d_model 2560 in heads of 64
+    "gla_scan": {"B": 2, "S": 2048, "H": 40, "dk": 64, "dv": 64},
+    # qwen2-0.5b served: prefill of a wave, decode against its cache, the
+    # prefill's norms
+    "flash_attention": {"B": 8, "Sq": 512, "Sk": 512, "H": 14, "K": 2, "dh": 64},
+    "decode_attention": {"B": 8, "H": 14, "K": 2, "dh": 64, "Smax": 576},
+    "rmsnorm": {"rows": 4096, "D": 896},
+}
+SWEEP_ARGS = {"algorithm": "ga", "budget": 8, "seed": 0}
+# served in f32, the type the sweep measured (a TuningDB key has no type)
+SWEEP_SERVE_ARGS = ["--arch", "qwen2-0.5b", "--no-reduced", "--dtype", "f32",
+                    "--requests", "8", "--prompt-len", "512", "--gen-len", "64",
+                    "--batch", "8"]
 
 
 def emit(obj):
@@ -115,19 +164,21 @@ def max_err(a, b):
 
 
 def check_close(name, what, got, want, tol):
-    """The reference tests' criterion: |got - want| <= tol + tol * |want|."""
+    """The reference tests' criterion: |got - want| <= atol + rtol * |want|,
+    with ``tol`` either one number for both or ``(atol, rtol)``."""
     import torch
 
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{name} {what}: shape/dtype {tuple(got.shape)} {got.dtype} "
                              f"vs {tuple(want.shape)} {want.dtype}")
     g, w = got.float(), want.float()
     if not bool(torch.isfinite(g).all()):
         raise AssertionError(f"{name} {what}: non-finite values")
-    bad = (g - w).abs() > tol + tol * w.abs()
+    bad = (g - w).abs() > atol + rtol * w.abs()
     if bool(bad.any()):
         raise AssertionError(f"{name} {what}: max abs err {max_err(got, want):.3e} "
-                             f"exceeds atol=rtol={tol}")
+                             f"exceeds atol={atol} rtol={rtol}")
     return max_err(got, want)
 
 
@@ -215,7 +266,8 @@ def phase_kernels(cx):
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
-    checked = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
+    checked = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
+               "ssm_scan": 0, "gla_scan": 0}
     worst = {k: {"f32": 0.0, "bf16": 0.0} for k in checked}
 
     # -- flash attention: the reference's tables ------------------------------
@@ -383,6 +435,7 @@ def phase_kernels(cx):
             want = rms.rmsnorm_plain(x, s, 1e-6)
             e = check_close("rmsnorm", f"{name} rows={R}", got, want, TOL["rmsnorm"][name])
             ms, eager_ms = time_ms(lambda x, s: rms.rmsnorm(x, s, 1e-6), sets)
+            ms8, _ = time_ms(lambda x, s: rms.rmsnorm(x, s, 1e-6, block_rows=8), sets)
             plain_ms, _ = time_ms(lambda x, s: rms.rmsnorm_plain(x, s, 1e-6), sets)
             s_dt = s.to(dt)
             lib_ms, _ = time_ms(lambda x, s: F.rms_norm(x, (D,), s_dt, 1e-6), sets)
@@ -390,12 +443,14 @@ def phase_kernels(cx):
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["f32"] * 1e3
             rows.append({"dtype": name, "shape": f"rows={R} D={D}", "config": cfg,
                          "max_abs_err": e, "ms": ms, "eager_ms": eager_ms,
+                         "ms_block_rows8": ms8,
                          "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
             del sets
     at_main["rmsnorm"] = rows
 
+    _scan_kernels(rand, dtypes, checked, worst, at_main)
     torch.cuda.empty_cache()
     cx.at_main = at_main
     emit({"phase": "kernels", "gpu": cx.smi, "tolerances": TOL, "cases_checked": checked,
@@ -404,6 +459,97 @@ def phase_kernels(cx):
                     "of >= 20 calls (device time); eager_ms: the same calls run eagerly "
                     "(host launch cost included); inputs rotated through buffers larger than "
                     "the L2 cache"})
+
+
+def _scan_kernels(rand, dtypes, checked, worst, at_main):
+    """The two scans: the reference's tables and edge cases against the
+    plain versions, then the sweep's full-width shapes (error, time, plain
+    time, bound).  No single PyTorch call computes either scan, so there is
+    no library time."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import gla_scan as gla
+    from repro_torch.kernels import ssm_scan as ssm
+
+    def ssm_args(B, S, D, N, dt):
+        # the reference test's distributions
+        return (rand(B, S, D, dtype=dt), (rand(B, S, D, dtype=torch.float32).abs() * 0.1).to(dt),
+                -rand(D, N, dtype=torch.float32).abs(), rand(B, S, N, dtype=dt),
+                rand(B, S, N, dtype=dt), rand(D, dtype=torch.float32))
+
+    def gla_args(B, S, H, dk, dv, dt):
+        w = torch.exp(-torch.exp(rand(B, S, H, dk, dtype=torch.float32) * 0.5 - 1.0))
+        return (rand(B, S, H, dk, dtype=dt), rand(B, S, H, dk, dtype=dt),
+                rand(B, S, H, dv, dtype=dt), w.to(dt), rand(H, dk, dtype=torch.float32))
+
+    for name, dt in dtypes.items():
+        for B, S, D, N, chunk, block_d in SSM_CASES:
+            a = ssm_args(B, S, D, N, dt)
+            got = ssm.ssm_scan(*a, chunk=chunk, block_d=block_d)
+            want = ssm.ssm_scan_plain(*a)
+            torch.cuda.synchronize()
+            e = check_close("ssm_scan", f"{name} B={B} S={S} D={D} N={N} chunk={chunk} "
+                            f"block_d={block_d}", got, want, TOL["ssm_scan"][name])
+            worst["ssm_scan"][name] = max(worst["ssm_scan"][name], e)
+            checked["ssm_scan"] += 1
+        for B, S, H, dk, dv, chunk in GLA_CASES:
+            a = gla_args(B, S, H, dk, dv, dt)
+            got = gla.gla_scan(*a, chunk=chunk)
+            want = gla.gla_scan_plain(*a)
+            torch.cuda.synchronize()
+            e = check_close("gla_scan", f"{name} B={B} S={S} H={H} dk={dk} dv={dv} "
+                            f"chunk={chunk}", got, want, TOL["gla_scan"][name])
+            worst["gla_scan"][name] = max(worst["gla_scan"][name], e)
+            checked["gla_scan"] += 1
+
+    def at_shape(kname, shape_s, fn, plain, sets, nbytes, flops, name):
+        got = fn(*sets[0])
+        cfg = dict(fn.last_config)
+        want = plain(*sets[0])
+        e = check_close(kname, f"{name} {shape_s}", got, want, TOL[kname][name])
+        del got, want
+        ms, eager_ms = time_ms(fn, sets)
+        # the plain version is a loop of ~10 small launches per step: one call
+        plain_ms, _ = time_ms(plain, sets[:1], warmup=1, min_iters=1, replays=1)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["f32"] * 1e3
+        return {"dtype": name, "shape": shape_s, "config": cfg, "max_abs_err": e, "ms": ms,
+                "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes, "operations_ms": t_ops,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    # ssm: the sweep's builder distributions; fp32 arithmetic whatever the input type
+    s = SWEEP_SHAPES["ssm_scan"]
+    B, S, D, N = s["B"], s["S"], s["D"], s["N"]
+    rows = []
+    for name, dt in dtypes.items():
+        esz = 4 if name == "f32" else 2
+        nbytes = (3 * B * S * D + 2 * B * S * N) * esz + (D * N + D) * 4
+        flops = 7 * B * S * D * N  # exp, dt*A, two FMAs on the state, dt*x*B
+        sets = [(rand(B, S, D, dtype=dt), F.softplus(rand(B, S, D, dtype=torch.float32)).to(dt),
+                 -torch.exp(rand(D, N, dtype=torch.float32)), rand(B, S, N, dtype=dt),
+                 rand(B, S, N, dtype=dt), torch.ones(D, device="cuda"))
+                for _ in range(n_sets_for(nbytes))]
+        rows.append(at_shape("ssm_scan", f"B={B} S={S} D={D} N={N}", ssm.ssm_scan,
+                             ssm.ssm_scan_plain, sets, nbytes, flops, name))
+        del sets
+    at_main["ssm_scan"] = rows
+
+    s = SWEEP_SHAPES["gla_scan"]
+    B, S, H, dk, dv = s["B"], s["S"], s["H"], s["dk"], s["dv"]
+    rows = []
+    for name, dt in dtypes.items():
+        esz = 4 if name == "f32" else 2
+        nbytes = B * S * H * (3 * dk + 2 * dv) * esz + H * dk * 4
+        flops = B * S * H * (4 * dk * dv + 3 * dk + 2 * dv)
+        sets = [(rand(B, S, H, dk, dtype=dt), rand(B, S, H, dk, dtype=dt),
+                 rand(B, S, H, dv, dtype=dt),
+                 torch.exp(-torch.exp(rand(B, S, H, dk, dtype=torch.float32))).to(dt),
+                 rand(H, dk, dtype=torch.float32)) for _ in range(n_sets_for(nbytes))]
+        rows.append(at_shape("gla_scan", f"B={B} S={S} H={H} dk={dk} dv={dv}", gla.gla_scan,
+                             gla.gla_scan_plain, sets, nbytes, flops, name))
+        del sets
+    at_main["gla_scan"] = rows
 
 
 def _full_model(cx):
@@ -539,10 +685,7 @@ def phase_serve(cx):
             done = serve.main(SERVE_ARGS)
         counts = _counts(mods)  # ... and read just after
         torch.cuda.synchronize()
-        line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[serve]")][-1]
-        m = re.match(r"\[serve\] (\d+) requests, (\d+) tokens in ([\d.]+)s => ([\d.]+) tok/s", line)
-        if m is None:
-            raise AssertionError(f"serve: unexpected report line {line!r}")
+        report = _serve_report(buf)
         if counts != expected:
             raise AssertionError(f"serve: launch counts {counts} != expected {expected}: "
                                  "the served path ran past a kernel")
@@ -551,10 +694,9 @@ def phase_serve(cx):
         for _, toks in done:
             if toks.shape != (gen_len,) or toks.min() < 0 or toks.max() >= 152064:
                 raise AssertionError("serve: a request's tokens have the wrong shape or range")
-        runs.append({"run": label, "requests": int(m.group(1)), "tokens": int(m.group(2)),
-                     "seconds": float(m.group(3)), "tok_per_s": float(m.group(4)),
-                     "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
-                     "launches": counts, "report": line})
+        runs.append(dict(report, run=label,
+                         peak_memory_bytes=int(torch.cuda.max_memory_allocated()),
+                         launches=counts))
     cx.launches = runs[0]["launches"]
     emit({"phase": "serve", "gpu": cx.smi, "args": SERVE_ARGS, "expected_launches": expected,
           "runs": runs, "note": "the first run includes one-time costs (Triton compilation, "
@@ -621,25 +763,173 @@ def phase_tuning_db(cx):
         raise AssertionError(f"tuning_db: tuned and untuned logits differ by {err:.3e}")
 
 
+def _serve_report(buf):
+    line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[serve]")][-1]
+    m = re.match(r"\[serve\] (\d+) requests, (\d+) tokens in ([\d.]+)s => ([\d.]+) tok/s", line)
+    if m is None:
+        raise AssertionError(f"serve: unexpected report line {line!r}")
+    return {"requests": int(m.group(1)), "tokens": int(m.group(2)),
+            "seconds": float(m.group(3)), "tok_per_s": float(m.group(4)), "report": line}
+
+
+def phase_sweep(cx):
+    """The tuning loop on the card: Tuner -> KernelTuneEvaluator ->
+    WallClockEvaluator -> ops -> kernel for all five kernels at full width,
+    best configs into a fresh TuningDB; a warm re-run measures nothing; then
+    qwen2-0.5b is served with the DB and must run the swept tiles."""
+    import torch
+
+    from repro_torch.benchmarks.kernel_sweep import lookup_latency_ms, run_sweep
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import gla_scan as gla
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.launch import serve
+    from repro_torch.tuning.evaluator import WallClockEvaluator
+    from repro_torch.tuning.kernel_objective import KERNELS
+    from repro_torch.tuning.tundb import TuningDB, hardware_fingerprint
+
+    cx.model = cx.params = None  # the serve below builds its own model
+    torch.cuda.empty_cache()
+    modules = {"rmsnorm": rms, "flash_attention": fla, "decode_attention": dec,
+               "ssm_scan": ssm, "gla_scan": gla}
+    mods = {name: getattr(m, name) for name, m in modules.items()}
+    names = list(SWEEP_SHAPES)
+    path = _build.build_dir() / "sweep_tundb.json"
+    path.unlink(missing_ok=True)
+    fp = hardware_fingerprint("cuda")
+    kw = dict(SWEEP_ARGS, shapes=SWEEP_SHAPES, device="cuda", emit=lambda *a: None)
+
+    _zero_counts(mods)  # just before the main path ...
+    rows, measured = run_sweep(names, TuningDB(path, fingerprint=fp), **kw)
+    torch.cuda.synchronize()
+    counts = _counts(mods)  # ... and read just after
+    cx.sweep_launches = counts
+    for r in rows:
+        if r["skipped"] or r["measurements"] <= 0 or not math.isfinite(r["value"]):
+            raise AssertionError(f"sweep: {r['kernel']} was not measured: {r}")
+    missing = [n for n in names if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"sweep: no launch of {missing} during the sweep: {counts}")
+
+    warm_db = TuningDB(path, fingerprint=fp)
+    _, warm_measured = run_sweep(names, warm_db, **kw)
+    lookup_ms = lookup_latency_ms(warm_db, names, shapes=SWEEP_SHAPES)
+    if warm_measured != 0:
+        raise AssertionError(f"sweep: the warm re-run measured {warm_measured} points")
+    if not lookup_ms < 1.0:
+        raise AssertionError(f"sweep: median DB lookup {lookup_ms:.4f} ms >= 1 ms")
+
+    # the defaults, measured the same way (outside the counted window)
+    recorded = {}
+    for r in rows:
+        name, shape, spec = r["kernel"], r["shape"], KERNELS[r["kernel"]]
+        wall = WallClockEvaluator(lambda p, spec=spec, shape=shape: spec.build(shape, p, "cuda"),
+                                  warmup=1, iters=2, rel_halfwidth=0.5)
+        d_value, d_meta = wall({})
+        recorded[name] = warm_db.lookup(name, shape)["config"]
+        emit({"phase": "sweep", "kernel": name, "shape": shape, "dtype": "f32",
+              "engine": SWEEP_ARGS["algorithm"], "budget": SWEEP_ARGS["budget"],
+              "default_config": spec.config({}), "default_runs_as": spec.effective(shape, {}),
+              "default_value": d_value, "default_step_seconds": d_meta["step_seconds"],
+              "best_config": r["best"], "best_runs_as": spec.effective(shape, r["best"]),
+              "best_value": r["value"], "best_step_seconds": r["step_seconds"],
+              "gain": r["value"] / d_value, "measurements": r["measurements"],
+              "n_evals": r["n_evals"], "seconds": r["seconds"], "launches": counts[name],
+              "value_unit": "examples/s (WallClockEvaluator, host clock, one synchronise "
+                            "per step)"})
+
+    # serve with the swept DB; spies on the consults and on what each kernel ran
+    served = ("flash_attention", "decode_attention", "rmsnorm")
+    seen, ran = [], {n: [] for n in served}
+    orig_tuned = ops._tuned
+    orig_eff = {n: modules[n].effective_config for n in served}
+
+    def spy(db, kernel, dims, defaults):
+        out = orig_tuned(db, kernel, dims, defaults)
+        if db is not None:
+            seen.append((db, kernel, dict(dims), dict(out)))
+        return out
+
+    def eff_spy(name):
+        def effective(*a, **k):
+            out = orig_eff[name](*a, **k)
+            ran[name].append(dict(out))
+            return out
+        return effective
+
+    layers, gen_len = 24, 64
+    expected = {"flash_attention": layers, "decode_attention": layers * (gen_len - 1),
+                "rmsnorm": (2 * layers + 1) * gen_len}
+    ops._tuned = spy
+    for n in served:
+        modules[n].effective_config = eff_spy(n)
+    try:
+        _zero_counts({n: mods[n] for n in served})
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            done = serve.main(SWEEP_SERVE_ARGS + ["--tuning-db", str(path)])
+        serve_counts = _counts({n: mods[n] for n in served})
+        torch.cuda.synchronize()
+    finally:
+        ops._tuned = orig_tuned
+        for n in served:
+            modules[n].effective_config = orig_eff[n]
+    report = _serve_report(buf)
+    if serve_counts != expected:
+        raise AssertionError(f"sweep serve: launch counts {serve_counts} != {expected}")
+    if len(done) != 8 or any(t.shape != (gen_len,) for _, t in done):
+        raise AssertionError("sweep serve: not every request was answered in full")
+    served_db = seen[0][0] if seen else None
+    pickup = {}
+    for n in served:
+        at = [out for _, k, dims, out in seen if k == n and dims == SWEEP_SHAPES[n]]
+        runs_as = KERNELS[n].effective(SWEEP_SHAPES[n], recorded[n])
+        pickup[n] = {"recorded": recorded[n], "tuned_calls_at_swept_dims": len(at),
+                     "runs_as": runs_as, "ran_with": sorted({json.dumps(c, sort_keys=True)
+                                                             for c in ran[n]})}
+        if not at or any(out != recorded[n] for out in at):
+            raise AssertionError(f"sweep serve: {n} did not get its record at {SWEEP_SHAPES[n]}: "
+                                 f"{[(k, d, o) for _, k, d, o in seen if k == n]}")
+        if runs_as not in ran[n]:
+            raise AssertionError(f"sweep serve: {n} never ran with {runs_as}: {ran[n]}")
+    if served_db is None or served_db.hits < len(served):
+        raise AssertionError(f"sweep serve: the DB got too few hits: "
+                             f"{None if served_db is None else served_db.hits}")
+    emit({"phase": "sweep", "gpu": cx.smi, "db": str(path), "cold_measurements": measured,
+          "warm_measurements": warm_measured, "lookup_median_ms": lookup_ms,
+          "sweep_launches": counts, "serve_args": SWEEP_SERVE_ARGS, "serve": report,
+          "serve_launches": serve_counts, "db_lookups": served_db.lookups,
+          "db_hits": served_db.hits, "pickup": pickup})
+
+
 def kernels_line(cx):
     """The contract line: one entry per kernel, at the main path's shape and
-    type (bf16; the RMSNorm entry is the prefill one, rows = 8*512)."""
-    pick = {"flash_attention": ("bf16", None), "decode_attention": ("bf16", None),
-            "rmsnorm": ("bf16", "rows=4096 D=896")}
-    meta = {
+    type.  The served kernels (bf16; the RMSNorm entry is the prefill one,
+    rows = 8*512) count their launches in the ``serve`` phase; the scans
+    (f32, the sweep's type) in the ``sweep`` phase, which is their path."""
+    meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
-                    "src/repro/kernels/rmsnorm.py:17"),
+                    "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
+                    cx.launches),
         "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:35"),
+                            "src/repro/kernels/flash_attention.py:163", "bf16", None,
+                            cx.launches),
         "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
-                             "src/repro/kernels/decode_attention.py:25"),
+                             "src/repro/kernels/decode_attention.py:112", "bf16", None,
+                             cx.launches),
+        "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan.py:89", "f32", None, cx.sweep_launches),
+        "gla_scan": ("cuda", "src/repro_torch/kernels/csrc/gla_scan.cu",
+                     "src/repro/kernels/gla_scan.py:89", "f32", None, cx.sweep_launches),
     }
     out = []
-    for name, (route, source, replaces) in meta.items():
-        dtype, shape = pick[name]
+    for name, (route, source, replaces, dtype, shape, counts) in meta.items():
         row = next(r for r in cx.at_main[name]
                    if r["dtype"] == dtype and (shape is None or r["shape"] == shape))
-        launches = cx.launches[name]
+        launches = counts[name]
         if launches <= 0:
             raise AssertionError(f"{name}: not launched on the main path")
         out.append({"name": name, "route": route, "source": source, "replaces": replaces,
@@ -651,7 +941,8 @@ def kernels_line(cx):
 
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-          "parity": phase_parity, "serve": phase_serve, "tuning_db": phase_tuning_db}
+          "parity": phase_parity, "serve": phase_serve, "tuning_db": phase_tuning_db,
+          "sweep": phase_sweep}
 
 
 def main(argv=None):

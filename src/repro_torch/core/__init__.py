@@ -1,0 +1,37 @@
+"""The paper's primary contribution: gradient-free auto-tuning of backend
+parameters for training/inference throughput — BO (GP + SMSego), GA, and
+Nelder-Mead simplex behind a common engine interface (paper Fig. 4).
+
+Engines speak the ask/tell contract (``engine.ask(n, history)`` ->
+deduplicated candidate batch; ``engine.tell(observations)`` feeds
+:class:`Observation` records back, incrementally and in completion
+order) and the
+:class:`Tuner` drives them through a completion-driven scheduler over
+the parallel evaluation executor (``repro_torch.tuning.executor``) under an
+iteration budget, a wall-clock budget, or both — with an optional
+disk-backed memo cache so repeated runs re-evaluate nothing.
+``parallelism=1`` reproduces the paper's sequential
+one-point-per-iteration harness bit-for-bit.
+
+BO (the GP surrogate and its acquisition) is not ported yet:
+``ENGINES["bo"]`` raises ``NotImplementedError`` when it is constructed,
+and so does a transfer-learning configuration (ROADMAP.md, Queue A, A9)."""
+from repro_torch.core.engine import Engine
+from repro_torch.core.exhaustive import Exhaustive
+from repro_torch.core.genetic import GeneticAlgorithm
+from repro_torch.core.history import History
+from repro_torch.core.neldermead import NelderMead
+from repro_torch.core.observation import Observation
+from repro_torch.core.random_search import RandomSearch
+from repro_torch.core.space import CatDim, IntDim, SearchSpace
+from repro_torch.core.tuner import (ENGINES, ExecutorConfig, HyperBandConfig,
+                                    MultiFidelityConfig, PBTConfig,
+                                    TransferConfig, Tuner, TunerConfig)
+
+__all__ = [
+    "CatDim", "ENGINES", "Engine", "ExecutorConfig",
+    "Exhaustive", "GeneticAlgorithm", "History",
+    "HyperBandConfig", "IntDim", "MultiFidelityConfig", "NelderMead",
+    "Observation", "PBTConfig", "RandomSearch", "SearchSpace",
+    "TransferConfig", "Tuner", "TunerConfig",
+]

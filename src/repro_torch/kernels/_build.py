@@ -38,6 +38,8 @@ NVCC_FLAGS = (
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "decode_attention": "decode_attention.cu",
+    "ssm_scan": "ssm_scan.cu",
+    "gla_scan": "gla_scan.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

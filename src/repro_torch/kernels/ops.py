@@ -28,7 +28,9 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode_mod
 from repro_torch.kernels import flash_attention as _flash_mod
+from repro_torch.kernels import gla_scan as _gla_mod
 from repro_torch.kernels import rmsnorm as _rms_mod
+from repro_torch.kernels import ssm_scan as _ssm_mod
 from repro_torch.kernels import ref
 
 _VALID_IMPLS = ("ref", "cuda", "chunked")
@@ -200,16 +202,57 @@ def rmsnorm(
 # Scans
 # ---------------------------------------------------------------------------
 
-_SCAN_MSG = ("{name} is not ported yet: its kernel is still to be ported "
-             "(ROADMAP.md, Queue B, {item})")
 
-
-def ssm_scan(x, dt, A, B_in, C_in, D_skip, *, impl: str = "chunked",
-             chunk: int = 128, block_d: int = 256, db=None):
+def ssm_scan(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B_in: torch.Tensor,
+    C_in: torch.Tensor,
+    D_skip: torch.Tensor,
+    *,
+    impl: str = "chunked",
+    chunk: int = 128,
+    block_d: int = 256,
+    db=None,
+) -> torch.Tensor:
     """Selective scan, zero init state.  Returns y (B,S,D)."""
-    raise NotImplementedError(_SCAN_MSG.format(name="ssm_scan", item="K4"))
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.ssm_scan_ref(x, dt, A, B_in, C_in, D_skip)[0]
+    B, S, D = x.shape
+    t = _tuned(db, "ssm_scan",
+               {"B": B, "S": S, "D": D, "N": A.shape[-1]},
+               {"chunk": chunk, "block_d": block_d})
+    chunk, block_d = t["chunk"], t["block_d"]
+    if impl == "chunked":
+        return ref.ssm_scan_chunked_ref(x, dt, A, B_in, C_in, D_skip, chunk=chunk)[0]
+    kernel_fn = functools.partial(_ssm_mod.ssm_scan, chunk=chunk, block_d=block_d)
+    ref_fn = lambda *a: ref.ssm_scan_chunked_ref(*a, chunk=chunk)[0]
+    return _ref_vjp(kernel_fn, ref_fn)(x, dt, A, B_in, C_in, D_skip)
 
 
-def gla_scan(r, k, v, w, u, *, impl: str = "chunked", chunk: int = 64, db=None):
+def gla_scan(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    impl: str = "chunked",
+    chunk: int = 64,
+    db=None,
+) -> torch.Tensor:
     """RWKV-6 wkv scan, zero init state.  Returns y (B,S,H,dv)."""
-    raise NotImplementedError(_SCAN_MSG.format(name="gla_scan", item="K5"))
+    _check_impl(impl)
+    if impl == "ref":
+        return ref.gla_scan_ref(r, k, v, w, u)[0]
+    B, S, H, dk = k.shape
+    chunk = _tuned(db, "gla_scan",
+                   {"B": B, "S": S, "H": H, "dk": dk, "dv": v.shape[-1]},
+                   {"chunk": chunk})["chunk"]
+    if impl == "chunked":
+        return ref.gla_scan_chunked_ref(r, k, v, w, u, chunk=chunk)[0]
+    kernel_fn = functools.partial(_gla_mod.gla_scan, chunk=chunk)
+    ref_fn = lambda *a: ref.gla_scan_chunked_ref(*a, chunk=chunk)[0]
+    return _ref_vjp(kernel_fn, ref_fn)(r, k, v, w, u)

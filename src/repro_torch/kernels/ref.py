@@ -4,13 +4,10 @@ These are the semantic ground truth: each kernel in this package is held
 against the function here across shape/dtype sweeps on the card, and these
 in turn are held against the reference package's oracles on the CPU.  They
 are also the ``impl="ref"`` path of the model zoo.
-
-Oracles for the scan kernels (Mamba selective scan, RWKV-6 wkv) arrive with
-the slice that ports those kernels.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -195,3 +192,168 @@ class _RMSNormRef(torch.autograd.Function):
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     return _RMSNormRef.apply(x, scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective scan
+# ---------------------------------------------------------------------------
+
+
+def ssm_scan_ref(
+    x: torch.Tensor,  # (B, S, D)   pre-activation ssm input
+    dt: torch.Tensor,  # (B, S, D)  softplus'd timestep
+    A: torch.Tensor,  # (D, N)      negative (continuous-time) state matrix
+    B_in: torch.Tensor,  # (B, S, N)
+    C_in: torch.Tensor,  # (B, S, N)
+    D_skip: torch.Tensor,  # (D,)
+    h0: Optional[torch.Tensor] = None,  # (B, D, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive sequential selective scan.  Returns (y (B,S,D), h_final (B,D,N)).
+
+    h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) outer B_t
+    y_t = (h_t @ C_t) + D * x_t
+    """
+    Bb, S, D = x.shape
+    N = A.shape[1]
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf, Af = B_in.float(), C_in.float(), A.float()
+    h = (torch.zeros((Bb, D, N), device=x.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t, :, None] * Af[None])  # (B, D, N)
+        dBx = (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * D_skip.float()[None, None]
+    return y.to(x.dtype), h
+
+
+def _ssm_associative_scan(loga: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan over dim 1 of ``h_t = exp(loga_t) h_{t-1} + b_t``
+    pairs, combining an earlier segment ``(a1, b1)`` with a later one
+    ``(a2, b2)`` into ``(a1 + a2, exp(min(a2, 0)) b1 + b2)`` — the
+    reference's combine, in log(T) doubling steps (Hillis–Steele)."""
+    T, off = loga.shape[1], 1
+    while off < T:
+        a_cur, b_cur = loga[:, off:], b[:, off:]
+        b = torch.cat([b[:, :off],
+                       torch.exp(torch.clamp(a_cur, max=0.0)) * b[:, :-off] + b_cur], 1)
+        loga = torch.cat([loga[:, :off], loga[:, :-off] + a_cur], 1)
+        off *= 2
+    return loga, b
+
+
+def ssm_scan_chunked_ref(
+    x, dt, A, B_in, C_in, D_skip, h0=None, *, chunk: int = 128
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked (work-efficient) selective scan: associative scan within a
+    chunk, sequential carry across chunks.  Same semantics as ssm_scan_ref
+    but with materialization bounded by the chunk size."""
+    Bb, S, D = x.shape
+    N = A.shape[1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:  # dt = 0 on the padded steps leaves the state unchanged
+        x, dt, B_in, C_in = (torch.nn.functional.pad(a, (0, 0, 0, pad))
+                             for a in (x, dt, B_in, C_in))
+    Sp = x.shape[1]
+    nc = Sp // chunk
+    xf = x.float().reshape(Bb, nc, chunk, D)
+    dtf = dt.float().reshape(Bb, nc, chunk, D)
+    Bf = B_in.float().reshape(Bb, nc, chunk, N)
+    Cf = C_in.float().reshape(Bb, nc, chunk, N)
+    Af = A.float()
+    h = (torch.zeros((Bb, D, N), device=x.device) if h0 is None else h0.float())
+    ys = []
+    for c in range(nc):
+        xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
+        dA = dtc[..., None] * Af[None, None]  # (B,T,D,N) log decay
+        dBx = (dtc * xc)[..., None] * Bc[:, :, None, :]  # (B,T,D,N)
+        loga, b = _ssm_associative_scan(dA, dBx)
+        hs = torch.exp(loga) * h[:, None] + b  # carry-in state + chunk inputs
+        ys.append(torch.einsum("btdn,btn->btd", hs, Cc))
+        h = hs[:, -1]
+    y = torch.stack(ys, dim=1).reshape(Bb, Sp, D)[:, :S]
+    y = y + x.float()[:, :S] * D_skip.float()[None, None]
+    return y.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 gated-linear-attention (wkv) scan
+# ---------------------------------------------------------------------------
+
+
+def gla_scan_ref(
+    r: torch.Tensor,  # (B, S, H, dk) receptance
+    k: torch.Tensor,  # (B, S, H, dk)
+    v: torch.Tensor,  # (B, S, H, dv)
+    w: torch.Tensor,  # (B, S, H, dk) per-channel decay in (0, 1)
+    u: torch.Tensor,  # (H, dk)       current-token bonus
+    h0: Optional[torch.Tensor] = None,  # (B, H, dk, dv)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence (fla convention):
+
+    y_t = r_t @ (S_{t-1} + (u * k_t) ⊗ v_t)
+    S_t = diag(w_t) S_{t-1} + k_t ⊗ v_t
+    """
+    B, S, H, dk = r.shape
+    dv = v.shape[-1]
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()
+    St = (torch.zeros((B, H, dk, dv), device=r.device) if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]
+        bonus = torch.einsum("bhk,hk,bhk->bh", rt, uf, kt)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt, St) + bonus[..., None] * vt)
+        St = wt[..., None] * St + kt[..., None] * vt[:, :, None, :]
+    y = torch.stack(ys, dim=1)  # (B, S, H, dv)
+    return y.to(r.dtype), St
+
+
+def gla_scan_chunked_ref(
+    r, k, v, w, u, h0=None, *, chunk: int = 64
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked-quadratic GLA: O(S/C * C^2) intra-chunk attention with decay
+    products + O(S/C) cross-chunk state carry.  Matmul-friendly form used by
+    the model for training/prefill."""
+    B, S, H, dk = r.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        zpad = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+        r, k, v = zpad(r), zpad(k), zpad(v)
+        w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    Sp = r.shape[1]
+    nc = Sp // chunk
+    shp = lambda a, d: a.float().reshape(B, nc, chunk, H, d)
+    rf, kf, wf = shp(r, dk), shp(k, dk), shp(w, dk)
+    vf = shp(v, dv)
+    uf = u.float()
+    St = (torch.zeros((B, H, dk, dv), device=r.device) if h0 is None else h0.float())
+
+    logw = torch.log(torch.clamp(wf, min=1e-30))  # (B,nc,T,H,dk)
+    cum = torch.cumsum(logw, dim=2)  # inclusive cumulative log-decay
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device),
+                     diagonal=-1)  # (t, s): s < t
+    ys = []
+    for c in range(nc):
+        rc, kc, vc, cumc, logwc = rf[:, c], kf[:, c], vf[:, c], cum[:, c], logw[:, c]
+        total = cumc[:, -1]  # (B,H,dk) chunk total log decay
+        excl = cumc - logwc  # exclusive cumulative log-decay c_{t-1}
+        r_dec = rc * torch.exp(excl)  # r_t * prod_{j<t} w_j
+        k_dec = kc * torch.exp(total[:, None] - cumc)  # k decayed to chunk end
+        # intra-chunk attention in masked diff-then-exp form: the exponents
+        # of kept (s < t) entries are <= 0, so strong decays never overflow
+        diff = excl[:, :, None] - cumc[:, None]  # (B,T,S,H,dk)
+        diff = torch.where(tri[None, :, :, None, None], diff, NEG_INF)
+        att = torch.einsum("bthk,bshk,btshk->bhts", rc, kc, torch.exp(diff))
+        bonus = torch.einsum("bthk,hk,bthk->bht", rc, uf, kc)
+        y = torch.einsum("bhts,bshv->bthv", att, vc)
+        y = y + bonus.permute(0, 2, 1)[..., None] * vc
+        y = y + torch.einsum("bthk,bhkv->bthv", r_dec, St)  # cross-chunk
+        St = torch.exp(total)[..., None] * St + torch.einsum("bthk,bthv->bhkv", k_dec, vc)
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(B, Sp, H, dv)[:, :S]
+    return y.to(r.dtype), St

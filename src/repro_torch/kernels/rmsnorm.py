@@ -8,15 +8,16 @@ Bound on this card: bytes.  Each element is read once and written once and
 takes about four operations, far below the card's operations-per-byte
 line, and nothing is reused between rows.  The design therefore only has to
 move each byte once, in wide coalesced accesses: one program per
-``block_rows`` rows keeps its whole ``(block_rows, next_pow2(D))`` tile in
-registers, reduces each row across the warp, and stores once.  The ragged
-last block and the columns past ``D`` are masked, nothing is padded by a
-copy.  Triton generates the 16-byte loads and the warp reduction that a
-CUDA C++ version would spell out by hand.
+``block_rows`` rows (the reference's knob: rows per grid step) walks them
+in sub-tiles of ``(sub_rows, next_pow2(D))`` that fit its registers, reduces
+each row across the warp, and stores once.  The ragged last block and the
+columns past ``D`` are masked, nothing is padded by a copy.  Triton
+generates the 16-byte loads and the warp reduction that a CUDA C++ version
+would spell out by hand.
 
-The tile must fit the registers of one program: ``block_rows *
-next_pow2(D) <= MAX_TILE_ELEMS`` (32 fp32 values per thread at 8 warps).
-A larger ``block_rows`` request is lowered, see ``effective_config``.
+A sub-tile holds at most ``MAX_TILE_ELEMS`` values (32 fp32 values per
+thread at 8 warps), so ``sub_rows = min(block_rows, MAX_TILE_ELEMS //
+next_pow2(D))``; a row wider than ``MAX_TILE_ELEMS`` is not supported.
 """
 from __future__ import annotations
 
@@ -39,11 +40,15 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def sub_rows(block_rows: int, D: int) -> int:
+    """Rows of one register-sized sub-tile of a program."""
+    return min(block_rows, MAX_TILE_ELEMS // pow2_ceil(D))
+
+
 def feasible(config: dict, shapes: dict, dtype=None) -> bool:
     """Whether ``config`` (``block_rows``) can launch at ``shapes`` (``D``):
-    the program's tile must fit its registers."""
-    block_d = pow2_ceil(int(shapes["D"]))
-    return int(config["block_rows"]) * block_d <= MAX_TILE_ELEMS
+    a row must fit the registers of one program."""
+    return int(config["block_rows"]) >= 1 and pow2_ceil(int(shapes["D"])) <= MAX_TILE_ELEMS
 
 
 def effective_config(block_rows: int, rows: int, D: int) -> dict:
@@ -64,21 +69,23 @@ def _kernel():
 
     @triton.jit
     def _rmsnorm_fwd(x_ptr, s_ptr, o_ptr, rows, D, stride_x, stride_o, eps,
-                     BLOCK_ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
+                     BLOCK_ROWS: tl.constexpr, SUB_ROWS: tl.constexpr,
+                     BLOCK_D: tl.constexpr):
         pid = tl.program_id(0)
-        r = pid * BLOCK_ROWS + tl.arange(0, BLOCK_ROWS)
         c = tl.arange(0, BLOCK_D)
         cmask = c < D
-        mask = (r < rows)[:, None] & cmask[None, :]
-        r64 = r.to(tl.int64)
-        x = tl.load(x_ptr + r64[:, None] * stride_x + c[None, :],
-                    mask=mask, other=0.0).to(tl.float32)
-        var = tl.sum(x * x, axis=1) / D
-        inv = 1.0 / tl.sqrt(var + eps)
         s = tl.load(s_ptr + c, mask=cmask, other=0.0).to(tl.float32)
-        y = x * inv[:, None] * s[None, :]
-        tl.store(o_ptr + r64[:, None] * stride_o + c[None, :],
-                 y.to(o_ptr.dtype.element_ty), mask=mask)
+        for i in range(0, BLOCK_ROWS // SUB_ROWS):
+            r = pid * BLOCK_ROWS + i * SUB_ROWS + tl.arange(0, SUB_ROWS)
+            mask = (r < rows)[:, None] & cmask[None, :]
+            r64 = r.to(tl.int64)
+            x = tl.load(x_ptr + r64[:, None] * stride_x + c[None, :],
+                        mask=mask, other=0.0).to(tl.float32)
+            var = tl.sum(x * x, axis=1) / D
+            inv = 1.0 / tl.sqrt(var + eps)
+            y = x * inv[:, None] * s[None, :]
+            tl.store(o_ptr + r64[:, None] * stride_o + c[None, :],
+                     y.to(o_ptr.dtype.element_ty), mask=mask)
 
     _KERNEL = _rmsnorm_fwd
     return _KERNEL
@@ -115,12 +122,13 @@ def rmsnorm(
     if rows == 0:
         return out.reshape(x.shape)
     br = cfg["block_rows"]
+    sr = sub_rows(br, D)
     block_d = pow2_ceil(D)
-    num_warps = min(8, max(1, br * block_d // 1024))
+    num_warps = min(8, max(1, sr * block_d // 1024))
     with torch.cuda.device(x.device):
         _kernel()[((rows + br - 1) // br,)](
             xr, scale, out, rows, D, xr.stride(0), out.stride(0), float(eps),
-            BLOCK_ROWS=br, BLOCK_D=block_d, num_warps=num_warps)
+            BLOCK_ROWS=br, SUB_ROWS=sr, BLOCK_D=block_d, num_warps=num_warps)
     rmsnorm.launches += 1
     return out.reshape(x.shape)
 

@@ -41,13 +41,26 @@ def test_port_has_the_expected_modules():
                  "repro_torch.kernels._build", "repro_torch.models.lm",
                  "repro_torch.models.convert", "repro_torch.serve.serve_step",
                  "repro_torch.launch.serve", "repro_torch.tuning.tundb",
-                 "repro_torch.tuning.cache", "repro_torch.configs.registry"):
+                 "repro_torch.tuning.cache", "repro_torch.configs.registry",
+                 "repro_torch.kernels.ssm_scan", "repro_torch.kernels.gla_scan",
+                 "repro_torch.tuning.objective", "repro_torch.tuning.evaluator",
+                 "repro_torch.tuning.kernel_objective", "repro_torch.tuning.executor",
+                 "repro_torch.tuning.remote", "repro_torch.tuning.protocol",
+                 "repro_torch.tuning.fidelity", "repro_torch.tuning.schedulers.asha",
+                 "repro_torch.tuning.schedulers.base", "repro_torch.tuning.schedulers.hyperband",
+                 "repro_torch.tuning.schedulers.pbt", "repro_torch.core.space",
+                 "repro_torch.core.observation", "repro_torch.core.history",
+                 "repro_torch.core.engine", "repro_torch.core.random_search",
+                 "repro_torch.core.exhaustive", "repro_torch.core.genetic",
+                 "repro_torch.core.neldermead", "repro_torch.core.tuner",
+                 "repro_torch.benchmarks.kernel_sweep"):
         assert must in MODULES
 
 
 def test_every_port_module_imports_without_jax_or_reference():
     out = _probe(MODULES + ["repro_torch", "repro_torch.kernels",
-                            "repro_torch.models", "repro_torch.configs"])
+                            "repro_torch.models", "repro_torch.configs",
+                            "repro_torch.core", "repro_torch.tuning.schedulers"])
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
 
@@ -79,7 +92,7 @@ def test_port_sources_do_not_mention(needle):
 
 
 def test_cuda_sources_are_there_and_plain_c():
-    for stem in ("flash_attention", "decode_attention"):
+    for stem in ("flash_attention", "decode_attention", "ssm_scan", "gla_scan"):
         text = (PKG / "kernels" / "csrc" / f"{stem}.cu").read_text()
         assert 'extern "C"' in text and "cudaGetLastError" in text
         assert "torch/" not in text and "ATen" not in text

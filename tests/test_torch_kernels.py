@@ -284,9 +284,12 @@ def test_tile_requests_are_clamped_to_feasible_powers_of_two():
     assert fla_mod.effective_config(128, 128, 37, 29, 16, 16) == {"block_q": 64, "block_kv": 32}
     assert dec_mod.effective_config(512, 14, 2, 64) == {"block_kv": 64}
     assert dec_mod.effective_config(1, 8, 2, 16) == {"block_kv": dec_mod.MIN_BLOCK_KV}
-    assert rms_mod.effective_config(256, 4096, 896) == {"block_rows": 8}
+    # block_rows is rows per program, walked in sub-tiles that fit registers
+    assert rms_mod.effective_config(256, 4096, 896) == {"block_rows": 256}
+    assert rms_mod.sub_rows(256, 896) == 8 and rms_mod.sub_rows(4, 896) == 4
     assert rms_mod.effective_config(256, 3, 64) == {"block_rows": 4}
-    assert not rms_mod.feasible({"block_rows": 16}, {"D": 896})
+    assert rms_mod.feasible({"block_rows": 4096}, {"D": 896})
+    assert not rms_mod.feasible({"block_rows": 1}, {"D": 2 * rms_mod.MAX_TILE_ELEMS})
     assert clamp_tile("t", 96, lambda t: t <= 16) == 16
 
 
@@ -302,15 +305,21 @@ def test_tile_request_that_is_no_positive_integer_raises(bad):
 
 
 def test_impl_vocabulary_and_unported_scans():
+    """The scans are ported now: they take the same impl vocabulary as the
+    other kernels and refuse the reference's spelling."""
     q, k, v = (_t(a) for a in (_np(0, 1, 8, 2, 8), _np(1, 1, 8, 2, 8), _np(2, 1, 8, 2, 8)))
     with pytest.raises(ValueError, match="cuda"):
         ops.attention(q, k, v, impl="pallas")
     with pytest.raises(ValueError):
         ops.rmsnorm(q, torch.ones(8), impl="triton")
-    with pytest.raises(NotImplementedError, match="K4"):
-        ops.ssm_scan(None, None, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="K5"):
-        ops.gla_scan(None, None, None, None, None)
+    x, A, Bc = _t(_np(3, 1, 8, 4)), -_t(_np(4, 4, 2)).abs(), _t(_np(5, 1, 8, 2))
+    with pytest.raises(ValueError, match="cuda"):
+        ops.ssm_scan(x, x.abs(), A, Bc, Bc, torch.ones(4), impl="pallas")
+    assert ops.ssm_scan(x, x.abs(), A, Bc, Bc, torch.ones(4), impl="cuda").shape == x.shape
+    with pytest.raises(ValueError, match="cuda"):
+        ops.gla_scan(q, k[:, :, :1].expand(1, 8, 2, 8), v, q.sigmoid(), torch.ones(2, 8),
+                     impl="pallas")
+    assert ops.gla_scan(q, q, v, q.sigmoid(), torch.ones(2, 8), impl="cuda").shape == v.shape
 
 
 def test_wrappers_refuse_what_they_do_not_take():
