@@ -216,9 +216,27 @@ def phase_build(cx):
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
         summary[stem] = {"kernels": len(regs), "max_registers": max(regs, default=0),
-                         "kernels_with_spills": sum(1 for s in spills if s > 0)}
+                         "kernels_with_spills": sum(1 for s in spills if s > 0),
+                         "families": _ptxas_families(log)}
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(logs),
           "dir": str(_build.build_dir()), "ptxas": summary})
+
+
+def _ptxas_families(log):
+    """Registers and spills per kernel template (the ptxas lines of each
+    entry function, grouped by the template's name)."""
+    fams = {}
+    for name, body in re.findall(r"Compiling entry function '(\w+)'.*?\n(.*?)(?=Compiling entry|\Z)",
+                                 log, flags=re.S):
+        fam = re.search(r"\d+([a-z_0-9]+?_kernel)", name)
+        fam = fam.group(1) if fam else name
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        f = fams.setdefault(fam, {"kernels": 0, "registers": [], "spill_store_bytes": []})
+        f["kernels"] += 1
+        f["registers"].append(int(regs.group(1)) if regs else None)
+        f["spill_store_bytes"].append(int(spill.group(1)) if spill else 0)
+    return fams
 
 
 def _flash_cases():
@@ -247,6 +265,19 @@ def _flash_cases():
     # not causal, windowed, more keys than queries
     cases.append(dict(B=1, Sq=100, Sk=130, H=2, K=2, dh=32, dv=32, causal=False,
                       window=20, block_q=32, block_kv=32))
+    # the bf16 wgmma kernel (fp32: the register-tiled one): block_q 64 and
+    # 128, Sq and Sk no multiples of 64, Sk > Sq and Sq > Sk, a window,
+    # groups of 1, 2 and 7, dh 64, 128 and a padded 80, every K/V tile size
+    for B, Sq, Sk, H, K, dh, causal, window, bq, bkv in (
+            (2, 77, 190, 14, 2, 64, True, None, 128, 64),    # Sk > Sq, group 7
+            (1, 150, 70, 2, 2, 128, True, None, 64, 32),     # Sq > Sk: rows with nothing
+            (1, 257, 257, 7, 1, 128, True, None, 128, 128),  # dh 128, group 7
+            (1, 100, 130, 4, 2, 64, False, 20, 64, 16),      # not causal, windowed
+            (2, 64, 100, 2, 2, 32, False, None, 64, 128),    # no mask, padded dh 32
+            (1, 65, 65, 2, 1, 80, True, 17, 128, 32),        # dh 80 padded to 128, window
+            (1, 300, 300, 4, 2, 64, True, None, 64, 128)):   # several tiles, group 2
+        cases.append(dict(B=B, Sq=Sq, Sk=Sk, H=H, K=K, dh=dh, dv=dh, causal=causal,
+                          window=window, block_q=bq, block_kv=bkv))
     return cases
 
 
@@ -269,6 +300,8 @@ def phase_kernels(cx):
     checked = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
                "ssm_scan": 0, "gla_scan": 0}
     worst = {k: {"f32": 0.0, "bf16": 0.0} for k in checked}
+    routes = {"f32": {}, "bf16": {}}  # flash kernel -> cases it took
+    splits = {}  # decode: n_splits -> cases
 
     # -- flash attention: the reference's tables ------------------------------
     for name, dt in dtypes.items():
@@ -280,20 +313,40 @@ def phase_kernels(cx):
             kw = dict(causal=c["causal"], window=c["window"])
             got = fla.flash_attention(q, k, v, block_q=c["block_q"],
                                       block_kv=c["block_kv"], **kw)
+            kern = fla.flash_attention.last_kernel
             want = fla.flash_attention_plain(q, k, v, block_kv=c["block_kv"], **kw)
             torch.cuda.synchronize()
-            e = check_close("flash_attention", f"{name} {c}", got, want, tol)
+            e = check_close("flash_attention", f"{name} {kern} {c}", got, want, tol)
             worst["flash_attention"][name] = max(worst["flash_attention"][name], e)
             checked["flash_attention"] += 1
-        # strided views (a head-major buffer seen as (B, S, H, d)) are read in place
-        qs = rand(2, 4, 40, 16, dtype=dt).transpose(1, 2)
-        ks = rand(2, 2, 40, 16, dtype=dt).transpose(1, 2)
-        vs = rand(2, 2, 40, 16, dtype=dt).transpose(1, 2)
-        e = check_close("flash_attention", f"{name} strided",
-                        fla.flash_attention(qs, ks, vs, block_q=16, block_kv=16),
-                        fla.flash_attention_plain(qs, ks, vs), tol)
-        worst["flash_attention"][name] = max(worst["flash_attention"][name], e)
-        checked["flash_attention"] += 1
+            routes[name][kern] = routes[name].get(kern, 0) + 1
+        # strided views (a head-major buffer seen as (B, S, H, d)) are read in
+        # place: one the mma/fma kernels take, one TMA takes (strides of 8
+        # elements), one TMA refuses (a head stride of 68 elements)
+        views = (
+            ("strided", 16, rand(2, 4, 40, 16, dtype=dt).transpose(1, 2),
+             rand(2, 2, 40, 16, dtype=dt).transpose(1, 2),
+             rand(2, 2, 40, 16, dtype=dt).transpose(1, 2)),
+            ("strided tma", 64, rand(2, 4, 100, 64, dtype=dt).transpose(1, 2),
+             rand(2, 2, 100, 64, dtype=dt).transpose(1, 2),
+             rand(2, 2, 100, 64, dtype=dt).transpose(1, 2)),
+            ("unaligned view", 64, rand(1, 90, 2, 68, dtype=dt)[..., :64],
+             rand(1, 90, 1, 68, dtype=dt)[..., :64], rand(1, 90, 1, 68, dtype=dt)[..., :64]))
+        for label, bq, qs, ks, vs in views:
+            got = fla.flash_attention(qs, ks, vs, block_q=bq, block_kv=bq)
+            kern = fla.flash_attention.last_kernel
+            e = check_close("flash_attention", f"{name} {label} ({kern})", got,
+                            fla.flash_attention_plain(qs, ks, vs), tol)
+            worst["flash_attention"][name] = max(worst["flash_attention"][name], e)
+            checked["flash_attention"] += 1
+            routes[name][kern] = routes[name].get(kern, 0) + 1
+            want_kern = {"strided": "mma", "strided tma": "wgmma", "unaligned view": "mma"}[label]
+            if name == "bf16" and kern != want_kern:
+                raise AssertionError(f"flash_attention: the {label} case ran on {kern}, "
+                                     f"not {want_kern}")
+    for name, need in (("f32", ("tiled", "fma")), ("bf16", ("wgmma", "mma", "fma"))):
+        if any(routes[name].get(k, 0) == 0 for k in need):
+            raise AssertionError(f"flash_attention: {name} cases missed a kernel: {routes[name]}")
     # exact zeros where nothing is attended
     q, k, v = (rand(1, 8, 2, 8, dtype=torch.float32) for _ in range(3))
     out = fla.flash_attention(q, k, v, causal=True, window=None, block_q=4, block_kv=4)
@@ -311,6 +364,16 @@ def phase_kernels(cx):
         dict(B=2, H=6, K=6, dh=24, Smax=33, lengths=[33, 9], block_kv=512),     # MHA, dh 24
         dict(B=2, H=14, K=2, dh=64, Smax=200, lengths=[200, 77], block_kv=512), # group 7
         dict(B=2, H=24, K=2, dh=128, Smax=90, lengths=[90, 31], block_kv=64),   # 2 passes
+        # the split cache: the served shape's 9 splits with a length shorter
+        # than one split, lengths that leave trailing splits empty, length 0
+        # beside full lengths; B*K >= 2*SMs (one split); a long cache
+        dict(B=8, H=14, K=2, dh=64, Smax=576, lengths=[575, 30, 3, 10, 576, 64, 65, 1],
+             block_kv=64),
+        dict(B=4, H=14, K=2, dh=64, Smax=576, lengths=[576, 0, 575, 0], block_kv=512),
+        dict(B=132, H=4, K=2, dh=64, Smax=64, lengths=[64 - (i % 64) for i in range(132)],
+             block_kv=64),
+        dict(B=2, H=14, K=2, dh=64, Smax=8192, lengths=[8191, 5000], block_kv=64),
+        dict(B=3, H=24, K=2, dh=128, Smax=1000, lengths=[999, 7, 0], block_kv=32),
     ]
     combos = {"f32": (torch.float32, torch.float32),
               "bf16": (torch.bfloat16, torch.bfloat16),
@@ -323,9 +386,14 @@ def phase_kernels(cx):
             v = rand(c["B"], c["Smax"], c["K"], c["dh"], dtype=kdt)
             lengths = torch.tensor(c["lengths"], dtype=torch.int32, device=dev)
             got = dec.decode_attention(q, k, v, lengths, block_kv=c["block_kv"])
+            n_splits = dec.decode_attention.last_splits
             want = dec.decode_attention_plain(q, k, v, lengths)
             torch.cuda.synchronize()
-            e = check_close("decode_attention", f"{name} {c}", got, want, tol)
+            e = check_close("decode_attention", f"{name} splits={n_splits} {c}", got, want, tol)
+            # the plain version cut as the kernel cut it: the merge's arithmetic
+            check_close("decode_attention", f"{name} plain splits={n_splits}", got,
+                        dec.decode_attention_plain(q, k, v, lengths, n_splits=n_splits), tol)
+            splits[n_splits] = splits.get(n_splits, 0) + 1
             if 0 in c["lengths"]:
                 b0 = c["lengths"].index(0)
                 if not bool((got[b0] == 0).all()):
@@ -333,6 +401,8 @@ def phase_kernels(cx):
             key = "bf16" if qdt == torch.bfloat16 else "f32"
             worst["decode_attention"][key] = max(worst["decode_attention"][key], e)
             checked["decode_attention"] += 1
+    if splits.get(1, 0) == 0 or not any(n > 1 for n in splits):
+        raise AssertionError(f"decode_attention: the cases missed the split or unsplit path: {splits}")
 
     # -- rmsnorm ----------------------------------------------------------------
     for name, dt in dtypes.items():
@@ -352,26 +422,42 @@ def phase_kernels(cx):
     at_main = {}
     H, K, dh, D = 14, 2, 64, 896
 
-    # flash: prefill of a wave, B=8, S=512
-    B, S = 8, 512
+    # flash: prefill of a wave, B=8, S=512, and a 2k prefill at the same batch
     rows = []
-    for name, dt in dtypes.items():
+    for (B, S), name in ((bs, n) for bs in ((8, 512), (8, 2048)) for n in dtypes):
+        dt = dtypes[name]
         esz = 4 if name == "f32" else 2
         nbytes = (2 * B * S * H * dh + 2 * B * S * K * dh) * esz
         sets = [(rand(B, S, H, dh, dtype=dt), rand(B, S, K, dh, dtype=dt),
                  rand(B, S, K, dh, dtype=dt)) for _ in range(n_sets_for(nbytes))]
         q, k, v = sets[0]
         got = fla.flash_attention(q, k, v, block_q=512, block_kv=512)
-        cfg = dict(fla.flash_attention.last_config)
+        cfg, kern = dict(fla.flash_attention.last_config), fla.flash_attention.last_kernel
         want = fla.flash_attention_plain(q, k, v)
-        e = check_close("flash_attention", f"{name} main shape", got, want,
+        e = check_close("flash_attention", f"{name} B={B} S={S}", got, want,
                         TOL["flash_attention"][name])
+        del got, want
         ms, eager_ms = time_ms(
             lambda q, k, v: fla.flash_attention(q, k, v, block_q=512, block_kv=512), sets)
         ms128, _ = time_ms(
             lambda q, k, v: fla.flash_attention(q, k, v, block_q=128, block_kv=128), sets)
-        plain_ms, _ = time_ms(lambda q, k, v: fla.flash_attention_plain(q, k, v), sets[:4],
-                              min_iters=4, replays=2)
+        cfg128 = dict(fla.flash_attention.last_config)
+        tiles_ms = {}  # other tiles: all at the served shape, the wgmma ones at 2k
+        tiles = ((64, 64), (64, 128), (128, 64), (128, 128), (32, 32), (32, 64), (64, 32))
+        for bq, bkv in (tiles if S == 512 else tiles[:4] if name == "bf16" else ()):
+            ms_t, _ = time_ms(lambda q, k, v: fla.flash_attention(
+                q, k, v, block_q=bq, block_kv=bkv), sets)
+            c = fla.flash_attention.last_config
+            tiles_ms[f"{c['block_q']}x{c['block_kv']} {fla.flash_attention.last_kernel}"] = ms_t
+        # the same queries over one K/V head per query head (no group shares a
+        # tile): how much the group's shared K/V tiles matter to the kernel
+        mha_sets = [(q, torch.randn_like(q), torch.randn_like(q))
+                    for q, _, _ in sets[:n_sets_for(4 * B * S * H * dh * esz)]]
+        mha_ms, _ = time_ms(lambda q, k, v: fla.flash_attention(q, k, v, block_q=512,
+                                                                block_kv=512), mha_sets)
+        del mha_sets
+        plain_ms, _ = time_ms(lambda q, k, v: fla.flash_attention_plain(q, k, v), sets[:2],
+                              warmup=1, min_iters=2, replays=1)
         lib_sets = [(q.transpose(1, 2), k.repeat_interleave(H // K, dim=2).transpose(1, 2),
                      v.repeat_interleave(H // K, dim=2).transpose(1, 2)) for q, k, v in sets]
         lib_ms, _ = time_ms(
@@ -381,16 +467,22 @@ def phase_kernels(cx):
         flops = B * H * live_pairs * (2 * dh + 2 * dh)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[name] * 1e3
         rows.append({"dtype": name, "shape": f"B={B} Sq=Sk={S} H={H} K={K} dh={dh} causal",
-                     "config": cfg, "max_abs_err": e, "ms": ms, "eager_ms": eager_ms, "ms_block128": ms128,
+                     "config": cfg, "kernel": kern, "max_abs_err": e, "ms": ms,
+                     "eager_ms": eager_ms, "ms_block128": ms128, "config_block128": cfg128,
+                     "tiles_ms": tiles_ms, "ms_no_gqa_sharing": mha_ms,
                      "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "share_of_peak": flops / (ms * 1e-3) / PEAK_FLOPS[name]})
         del sets
     at_main["flash_attention"] = rows
 
-    # decode: one step of a wave, B=8, Smax=576, every sequence at length 575
-    B, Smax = 8, 576
+    # decode: one step of a wave, B=8, Smax=576, every sequence at length 575;
+    # then long caches (8k, 32k rows) in bf16
     rows = []
-    for name, (qdt, kdt) in combos.items():
+    shapes = [(576, n) for n in combos] + [(8192, "bf16"), (32768, "bf16")]
+    B = 8
+    for Smax, name in shapes:
+        qdt, kdt = combos[name]
         esz = 2 if kdt == torch.bfloat16 else 4
         length = Smax - 1
         nbytes = 2 * B * length * K * dh * esz + 2 * B * H * dh * (2 if qdt == torch.bfloat16 else 4)
@@ -399,24 +491,32 @@ def phase_kernels(cx):
                  rand(B, Smax, K, dh, dtype=kdt), lengths) for _ in range(n_sets_for(nbytes))]
         q, k, v, _ = sets[0]
         got = dec.decode_attention(q, k, v, lengths, block_kv=512)
-        cfg = dict(dec.decode_attention.last_config)
+        cfg, n_splits = dict(dec.decode_attention.last_config), dec.decode_attention.last_splits
         want = dec.decode_attention_plain(q, k, v, lengths)
-        e = check_close("decode_attention", f"{name} main shape", got, want,
+        e = check_close("decode_attention", f"{name} Smax={Smax}", got, want,
                         TOL["decode_attention"]["bf16" if qdt == torch.bfloat16 else "f32"])
+        del got, want
         ms, eager_ms = time_ms(lambda *a: dec.decode_attention(*a, block_kv=512), sets)
-        plain_ms, _ = time_ms(lambda *a: dec.decode_attention_plain(*a), sets)
+        block_kv_ms = {}
+        for bkv in (16, 32):
+            block_kv_ms[bkv], _ = time_ms(lambda *a: dec.decode_attention(*a, block_kv=bkv), sets)
+            block_kv_ms[f"{bkv} splits"] = dec.decode_attention.last_splits
+        plain_ms, _ = time_ms(lambda *a: dec.decode_attention_plain(*a), sets[:4],
+                              min_iters=4, replays=2)
         mask = (torch.arange(Smax, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         lib_sets = [(q[:, :, None, :], k.to(qdt).repeat_interleave(H // K, dim=2).transpose(1, 2),
                      v.to(qdt).repeat_interleave(H // K, dim=2).transpose(1, 2))
-                    for q, k, v, _ in sets]
+                    for q, k, v, _ in sets[:4]]
         lib_ms, _ = time_ms(
             lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), lib_sets)
         del lib_sets
         flops = B * H * length * 4 * dh
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["f32" if qdt == torch.float32 else "bf16"] * 1e3
         rows.append({"dtype": name, "shape": f"B={B} Smax={Smax} len={length} H={H} K={K} dh={dh}",
-                     "config": cfg, "max_abs_err": e, "ms": ms, "eager_ms": eager_ms,
-                     "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                     "config": cfg, "splits": n_splits, "max_abs_err": e, "ms": ms,
+                     "block_kv_ms": block_kv_ms,
+                     "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
         del sets
     at_main["decode_attention"] = rows
@@ -454,7 +554,8 @@ def phase_kernels(cx):
     torch.cuda.empty_cache()
     cx.at_main = at_main
     emit({"phase": "kernels", "gpu": cx.smi, "tolerances": TOL, "cases_checked": checked,
-          "worst_abs_err": worst, "at_main_shapes": at_main,
+          "worst_abs_err": worst, "flash_routes": routes, "decode_splits": splits,
+          "at_main_shapes": at_main,
           "timing": "ms, plain_ms, library_ms: CUDA events around the replay of a CUDA graph "
                     "of >= 20 calls (device time); eager_ms: the same calls run eagerly "
                     "(host launch cost included); inputs rotated through buffers larger than "
@@ -686,6 +787,12 @@ def phase_serve(cx):
         counts = _counts(mods)  # ... and read just after
         torch.cuda.synchronize()
         report = _serve_report(buf)
+        ran = {"flash_attention": flash_attention.last_kernel,
+               "flash_config": flash_attention.last_config,
+               "decode_splits": decode_attention.last_splits,
+               "decode_config": decode_attention.last_config}
+        if ran["flash_attention"] != "wgmma" or not ran["decode_splits"] > 1:
+            raise AssertionError(f"serve: the served path did not run the redesigned kernels: {ran}")
         if counts != expected:
             raise AssertionError(f"serve: launch counts {counts} != expected {expected}: "
                                  "the served path ran past a kernel")
@@ -696,7 +803,7 @@ def phase_serve(cx):
                 raise AssertionError("serve: a request's tokens have the wrong shape or range")
         runs.append(dict(report, run=label,
                          peak_memory_bytes=int(torch.cuda.max_memory_allocated()),
-                         launches=counts))
+                         launches=counts, ran=ran))
     cx.launches = runs[0]["launches"]
     emit({"phase": "serve", "gpu": cx.smi, "args": SERVE_ARGS, "expected_launches": expected,
           "runs": runs, "note": "the first run includes one-time costs (Triton compilation, "
@@ -915,11 +1022,11 @@ def kernels_line(cx):
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
                     cx.launches),
         "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:163", "bf16", None,
-                            cx.launches),
+                            "src/repro/kernels/flash_attention.py:163", "bf16",
+                            "B=8 Sq=Sk=512 H=14 K=2 dh=64 causal", cx.launches),
         "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
-                             "src/repro/kernels/decode_attention.py:112", "bf16", None,
-                             cx.launches),
+                             "src/repro/kernels/decode_attention.py:112", "bf16",
+                             "B=8 Smax=576 len=575 H=14 K=2 dh=64", cx.launches),
         "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan.py:89", "f32", None, cx.sweep_launches),
         "gla_scan": ("cuda", "src/repro_torch/kernels/csrc/gla_scan.cu",

@@ -7,23 +7,45 @@
 // lengths[b] == 0.  Row order does not matter to the result, so a ring
 // buffer whose first lengths[b] slots are valid is served as it lies.
 //
-// What differs from the TPU kernel, and why:
-//  * The TPU grid (B*H, kv blocks) reads each KV head once per query head of
-//    its group.  Here one block serves one (sequence, kv head) and all H/K
-//    query heads of that group, so a cache byte is read once.
-//  * The kernel is bound by bytes: per cache row it reads 2*dh elements and
-//    does 4*dh*(H/K) operations.  Eight lanes share a row (16 bytes per lane
-//    for bf16 at dh = 64), a block keeps block_kv rows in flight, each lane
-//    carries (m, l, acc) for every head of the group over its own rows, and
-//    the partial results are merged once at the end: by shuffles inside a
-//    warp, through shared memory across warps.
-//  * lengths is read on the device; the host never waits for it.
+// What bounds it on this card: bytes.  Per cache row the kernel reads 2*dh
+// elements and does 4*dh*(H/K) operations, far below the card's ~300
+// operations a byte, so the least time is the cache's bytes over 3.35 TB/s
+// (0.7 us at batch 8, 576 rows, 2 kv heads of 64 in bf16).  Reaching it needs
+// enough bytes in flight on every SM, and at serving batch sizes the natural
+// grid (one block per sequence and kv head: 16 blocks at batch 8) leaves most
+// of the 132 SMs idle while each block walks the whole cache.
+//
+// The design (flash-decoding, one launch):
+//  * Grid (K, B, n_splits).  Split s of sequence b takes the contiguous
+//    rows [s*r, min((s+1)*r, lengths[b])) with r = ceil(lengths[b] /
+//    n_splits): the range is derived on the device, so the host never waits
+//    for lengths, and every sequence's rows are spread over all its splits
+//    whatever its length.  A split past the length holds no row and reports
+//    m = -inf, l = 0.  The wrapper picks n_splits from shapes alone (split_count in
+//    decode_attention.py: up to two blocks per SM, so one wave, and at least
+//    one trip of block_kv rows a split).
+//  * One block serves one (sequence, kv head, split) and all H/K query heads
+//    of that group, so a cache byte is read once.  It walks its rows in trips
+//    of block_kv rows: eight lanes a row load K and V (16 bytes a lane for
+//    bf16 at dh = 64) and form the row's scores for every head; a warp a head
+//    turns a trip's scores into probabilities; a thread a (head, column)
+//    adds P V to its accumulator.  The running (m, l, acc) live in shared
+//    memory, so no thread carries per-head arrays: the kernel fits in 64
+//    registers and two blocks of 512 threads share an SM, and the splits of a
+//    serving step run in one wave.
+//  * With one split the block writes the output itself.  Otherwise it writes
+//    its unnormalised (m, l, acc) to an fp32 scratch that the wrapper
+//    allocates, then counts itself done on a per-(sequence, kv head) counter
+//    (__threadfence, atomicAdd).  The last block of the group to finish
+//    merges the splits (each rescaled to the largest maximum, as the trips
+//    are), writes the output and sets the counter back to 0.  A second merge kernel would cost
+//    a launch per layer, and the host, not the card, bounds serving.
+//  * The counters are a zeroed int32 buffer that the wrapper keeps per
+//    device; it is 0 again after every launch, so it stays valid under CUDA
+//    graph capture.  Two launches that run at once on different streams of
+//    one device must not share it.
 //  * The cache is read in the type it is stored in (bf16 under an fp32
 //    query is widened in registers, which is exact).
-//
-// With B*K blocks only (16 at batch 8, 2 kv heads) the card's 132 SMs are
-// mostly idle; splitting the cache axis over blocks with a merge pass is the
-// next step for this kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +74,8 @@ struct DecodeParams {
   const void* v;
   const int* lengths;
   void* o;
+  float* part;   // [B][H][n_splits][dh + 2]: acc[dh], m, l (n_splits > 1)
+  int* counter;  // [B*K], zero between launches (n_splits > 1)
   int B, H, K, dh, Smax;
   long long q_b, q_h;
   long long k_b, k_s, k_h;
@@ -99,31 +123,57 @@ __device__ __forceinline__ void load_row(const T* row, int d0, int dh, bool vali
   }
 }
 
-// One block per (kv head, sequence); GC query heads of the group per pass.
+// One block per (kv head, sequence, split); GC query heads of the group per
+// pass.  A trip takes R = blockDim.x / TPR rows: (a) TPR lanes a row load its
+// K and V, keep V in shared memory and form the row's scores for every head
+// (base-2 logits); (b) a warp a head takes the trip's maximum and sum and
+// turns the scores into probabilities, updating the head's running (m, l);
+// (c) a thread a (head, column) rescales its accumulator and adds P V.  The
+// running (m, l, acc) live in shared memory, so a thread holds no per-head
+// arrays and two blocks fit an SM.
 template <typename TQ, typename TKV, int EPL, int GC>
-__global__ void __launch_bounds__(MAX_THREADS) decode_kernel(const DecodeParams p) {
+__global__ void __launch_bounds__(MAX_THREADS, 2) decode_kernel(const DecodeParams p) {
   constexpr int DHP = TPR * EPL;
+  const int R = blockDim.x / TPR;
   extern __shared__ float4 smem4[];
-  float* sm_q = reinterpret_cast<float*>(smem4);  // [GC][DHP]
-  const int nwarps = blockDim.x >> 5;
-  float* sm_m = sm_q + GC * DHP;         // [nwarps][GC]
-  float* sm_l = sm_m + nwarps * GC;      // [nwarps][GC]
-  float* sm_acc = sm_l + nwarps * GC;    // [nwarps][GC][DHP]
+  float* sm_q = reinterpret_cast<float*>(smem4);  // [GC][DHP] (see q_slot), times scale * log2(e)
+  float* sm_acc = sm_q + GC * DHP;               // [GC][DHP]
+  float* sm_v = sm_acc + GC * DHP;               // [R][DHP]: this trip's V rows
+  float* sm_p = sm_v + R * DHP;                  // [GC][R]: scores, then probabilities
+  float* sm_m = sm_p + GC * R;                   // [GC]: running maximum (base 2)
+  float* sm_l = sm_m + GC;                       // [GC]: running sum
+  float* sm_a = sm_l + GC;                       // [GC]: this trip's rescale
+  __shared__ int sm_last;
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int n_splits = gridDim.z;
   const int G = p.H / p.K;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int sub = tid % TPR;       // lane within the row's group of TPR
-  const int rgrp = tid / TPR;      // which row of the block's rows in flight
-  const int rows_in_flight = blockDim.x / TPR;
+  const int nwarps = blockDim.x >> 5;
+  const int sub = tid % TPR;   // lane within the row's group of TPR
+  const int rgrp = tid / TPR;  // which row of the trip
   const int d0 = sub * EPL;
   const bool vec = p.vec_ok != 0;
+  const float qscale = p.scale * 1.4426950408889634f;  // softmax in base 2
+  // where q[g][d] sits in sm_q: the 4-column groups of the TPR lanes of a row
+  // side by side, so that a lane's 16-byte reads hit distinct banks
+  auto q_slot = [](int g, int d) {
+    if constexpr (EPL % 4 == 0)
+      return g * DHP + (((d % EPL) / 4) * TPR + d / EPL) * 4 + d % 4;
+    else
+      return g * DHP + d;
+  };
 
   int length = p.lengths[b];
   length = length < 0 ? 0 : (length > p.Smax ? p.Smax : length);
+  // this split's rows: [r_begin, r_end)
+  const int per_split = (length + n_splits - 1) / n_splits;
+  const int r_begin = min(split * per_split, length);
+  const int r_end = min(r_begin + per_split, length);
 
   const TQ* qbase = reinterpret_cast<const TQ*>(p.q) + (long long)b * p.q_b;
   const TKV* kbase =
@@ -131,119 +181,213 @@ __global__ void __launch_bounds__(MAX_THREADS) decode_kernel(const DecodeParams 
   const TKV* vbase =
       reinterpret_cast<const TKV*>(p.v) + (long long)b * p.v_b + (long long)kvh * p.v_h;
   TQ* obase = reinterpret_cast<TQ*>(p.o) + (long long)b * p.o_b;
+  const int pstride = p.dh + 2;  // floats per (head, split) partial
+
+  // K and V of one trip's row into registers (zeros past the split's end)
+  float kf[EPL], vf[EPL];
+  auto load_trip = [&](int r0) {
+    const int r = r0 + rgrp;
+    const bool valid = r < r_end;
+    load_row<TKV, EPL>(kbase + (long long)(valid ? r : 0) * p.k_s, d0, p.dh, valid, vec, kf);
+    load_row<TKV, EPL>(vbase + (long long)(valid ? r : 0) * p.v_s, d0, p.dh, valid, vec, vf);
+  };
 
   for (int g0 = 0; g0 < G; g0 += GC) {
     const int gn = (GC < G - g0) ? GC : (G - g0);
     const int h0 = kvh * G + g0;
 
+    if (r_begin < r_end) load_trip(r_begin);  // in flight while the queries are staged
     __syncthreads();  // shared memory of the previous pass has been read
     for (int idx = tid; idx < GC * DHP; idx += blockDim.x) {
       const int g = idx / DHP;
       const int d = idx % DHP;
       float val = 0.f;
-      if (g < gn && d < p.dh) val = to_f32<TQ>(qbase[(long long)(h0 + g) * p.q_h + d]);
-      sm_q[idx] = val;
+      if (g < gn && d < p.dh) val = to_f32<TQ>(qbase[(long long)(h0 + g) * p.q_h + d]) * qscale;
+      sm_q[q_slot(g, d)] = val;
+      sm_acc[idx] = 0.f;
+    }
+    if (tid < GC) {
+      sm_m[tid] = -INFINITY;
+      sm_l[tid] = 0.f;
     }
     __syncthreads();
 
-    float m[GC], l[GC], acc[GC][EPL];
+    for (int r0 = r_begin; r0 < r_end; r0 += R) {
+      // (a) V into shared memory (16-byte stores), scores of this trip's rows
+      const bool valid = r0 + rgrp < r_end;
+      if constexpr (EPL % 4 == 0) {
 #pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      m[g] = -INFINITY;
-      l[g] = 0.f;
+        for (int e = 0; e < EPL; e += 4)
+          *reinterpret_cast<float4*>(sm_v + rgrp * DHP + d0 + e) =
+              make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
+      } else {
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-    }
-
-    // every lane of a warp makes the same number of trips (the shuffles
-    // below need all of them); a lane whose row is past the end idles
-    for (int r0 = 0; r0 < length; r0 += rows_in_flight) {
-      const int r = r0 + rgrp;
-      const bool valid = r < length;
-      float kf[EPL], vf[EPL];
-      load_row<TKV, EPL>(kbase + (long long)(valid ? r : 0) * p.k_s, d0, p.dh, valid, vec, kf);
-      load_row<TKV, EPL>(vbase + (long long)(valid ? r : 0) * p.v_s, d0, p.dh, valid, vec, vf);
+        for (int e = 0; e < EPL; ++e) sm_v[rgrp * DHP + d0 + e] = vf[e];
+      }
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
         if (g < gn) {  // uniform over the block
           float s = 0.f;
+          if constexpr (EPL % 4 == 0) {
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) s = fmaf(sm_q[g * DHP + d0 + e], kf[e], s);
+            for (int e = 0; e < EPL; e += 4) {
+              const float4 qv = *reinterpret_cast<const float4*>(sm_q + q_slot(g, d0 + e));
+              s = fmaf(qv.x, kf[e], s);
+              s = fmaf(qv.y, kf[e + 1], s);
+              s = fmaf(qv.z, kf[e + 2], s);
+              s = fmaf(qv.w, kf[e + 3], s);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) s = fmaf(sm_q[q_slot(g, d0 + e)], kf[e], s);
+          }
           s += __shfl_xor_sync(0xffffffffu, s, 1);
           s += __shfl_xor_sync(0xffffffffu, s, 2);
           s += __shfl_xor_sync(0xffffffffu, s, 4);
-          if (valid) {
-            s *= p.scale;
-            const float m_new = fmaxf(m[g], s);
-            const float alpha = expf(m[g] - m_new);  // m == -inf gives 0
-            const float pj = expf(s - m_new);
-            l[g] = l[g] * alpha + pj;
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pj, vf[e], acc[g][e] * alpha);
-            m[g] = m_new;
-          }
+          if (sub == 0) sm_p[g * R + rgrp] = valid ? s : -INFINITY;
         }
       }
-    }
+      // the next trip's rows are in flight during (b) and (c)
+      if (r0 + R < r_end) load_trip(r0 + R);
+      __syncthreads();
 
-    // merge the 32 / TPR row groups of a warp (lanes with equal `sub`)
+      // (b) per head: the trip's maximum, probabilities, running (m, l)
+      for (int g = warp; g < gn; g += nwarps) {
+        float* pg = sm_p + g * R;
+        float mx = -INFINITY;
+        for (int j = lane; j < R; j += 32) mx = fmaxf(mx, pg[j]);
 #pragma unroll
-    for (int g = 0; g < GC; ++g) {
-#pragma unroll
-      for (int off = TPR; off < 32; off <<= 1) {
-        const float m2 = __shfl_xor_sync(0xffffffffu, m[g], off);
-        const float l2 = __shfl_xor_sync(0xffffffffu, l[g], off);
-        const float mn = fmaxf(m[g], m2);
-        const float a1 = (m[g] == -INFINITY) ? 0.f : expf(m[g] - mn);
-        const float a2 = (m2 == -INFINITY) ? 0.f : expf(m2 - mn);
-        l[g] = l[g] * a1 + l2 * a2;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          const float acc2 = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-          acc[g][e] = acc[g][e] * a1 + acc2 * a2;
+        for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_old = sm_m[g];
+        const float m_new = fmaxf(m_old, mx);
+        const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;  // nothing live yet
+        float ls = 0.f;
+        for (int j = lane; j < R; j += 32) {
+          const float pj = exp2f(pg[j] - m_safe);  // a masked row gives exp2(-inf) = 0
+          pg[j] = pj;
+          ls += pj;
         }
-        m[g] = mn;
-      }
-      if (lane < TPR) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) sm_acc[(warp * GC + g) * DHP + d0 + e] = acc[g][e];
+        for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
         if (lane == 0) {
-          sm_m[warp * GC + g] = m[g];
-          sm_l[warp * GC + g] = l[g];
+          const float alpha = exp2f(m_old - m_safe);  // m == -inf gives 0
+          sm_a[g] = alpha;
+          sm_l[g] = sm_l[g] * alpha + ls;
+          sm_m[g] = m_new;
         }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // merge the warps and write the output
+      // (c) acc = acc * alpha + P V, a thread a (head, 4 columns), two row
+      // chains; rows past the end of the split have P = 0 and V = 0
+      const int nr4 = (min(R, r_end - r0) + 3) & ~3;
+      for (int idx = tid; idx < gn * (DHP / 4); idx += blockDim.x) {
+        const int g = idx / (DHP / 4);
+        const int d = (idx % (DHP / 4)) * 4;
+        const float* pg = sm_p + g * R;
+        float4 a0 = *reinterpret_cast<const float4*>(sm_acc + g * DHP + d);
+        const float al = sm_a[g];
+        a0.x *= al;
+        a0.y *= al;
+        a0.z *= al;
+        a0.w *= al;
+        float4 a1 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+        for (int j = 0; j < nr4; j += 4) {
+          const float4 pj = *reinterpret_cast<const float4*>(pg + j);
+          const float4 v0 = *reinterpret_cast<const float4*>(sm_v + (j + 0) * DHP + d);
+          const float4 v1 = *reinterpret_cast<const float4*>(sm_v + (j + 1) * DHP + d);
+          const float4 v2 = *reinterpret_cast<const float4*>(sm_v + (j + 2) * DHP + d);
+          const float4 v3 = *reinterpret_cast<const float4*>(sm_v + (j + 3) * DHP + d);
+          a0.x = fmaf(pj.x, v0.x, a0.x); a0.y = fmaf(pj.x, v0.y, a0.y);
+          a0.z = fmaf(pj.x, v0.z, a0.z); a0.w = fmaf(pj.x, v0.w, a0.w);
+          a1.x = fmaf(pj.y, v1.x, a1.x); a1.y = fmaf(pj.y, v1.y, a1.y);
+          a1.z = fmaf(pj.y, v1.z, a1.z); a1.w = fmaf(pj.y, v1.w, a1.w);
+          a0.x = fmaf(pj.z, v2.x, a0.x); a0.y = fmaf(pj.z, v2.y, a0.y);
+          a0.z = fmaf(pj.z, v2.z, a0.z); a0.w = fmaf(pj.z, v2.w, a0.w);
+          a1.x = fmaf(pj.w, v3.x, a1.x); a1.y = fmaf(pj.w, v3.y, a1.y);
+          a1.z = fmaf(pj.w, v3.z, a1.z); a1.w = fmaf(pj.w, v3.w, a1.w);
+        }
+        *reinterpret_cast<float4*>(sm_acc + g * DHP + d) =
+            make_float4(a0.x + a1.x, a0.y + a1.y, a0.z + a1.z, a0.w + a1.w);
+      }
+      __syncthreads();  // sm_v and sm_p are free for the next trip
+    }
+
+    // the output itself (one split), else this split's unnormalised partial
     for (int idx = tid; idx < gn * p.dh; idx += blockDim.x) {
       const int g = idx / p.dh;
       const int d = idx % p.dh;
-      float mx = -INFINITY;
-      for (int w = 0; w < nwarps; ++w) mx = fmaxf(mx, sm_m[w * GC + g]);
-      float out = 0.f;
-      if (mx != -INFINITY) {  // else: empty cache, exact zeros
-        float lsum = 0.f, asum = 0.f;
-        for (int w = 0; w < nwarps; ++w) {
-          const float mw = sm_m[w * GC + g];
-          if (mw == -INFINITY) continue;
-          const float a = expf(mw - mx);
-          lsum += sm_l[w * GC + g] * a;
-          asum += sm_acc[(w * GC + g) * DHP + d] * a;
+      const float acc = sm_acc[g * DHP + d];
+      const float m = sm_m[g];
+      if (n_splits == 1) {
+        // an empty cache gives exact zeros
+        obase[(long long)(h0 + g) * p.o_h + d] = from_f32<TQ>(m == -INFINITY ? 0.f : acc / sm_l[g]);
+      } else {
+        float* part = p.part + (((long long)b * p.H + h0 + g) * n_splits + split) * pstride;
+        part[d] = acc;
+        if (d == 0) {
+          part[p.dh] = m;
+          part[p.dh + 1] = sm_l[g];
         }
-        out = asum / lsum;
       }
-      obase[(long long)(h0 + g) * p.o_h + d] = from_f32<TQ>(out);
     }
   }
+  if (n_splits == 1) return;
+
+  // count this split done; the last of the group merges
+  int* counter = p.counter + (long long)b * p.K + kvh;
+  __threadfence();  // this block's partials are visible device-wide ...
+  __syncthreads();  // ... for every thread of it
+  if (tid == 0) sm_last = (atomicAdd(counter, 1) == n_splits - 1);
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();  // the other splits' partials are visible to this block
+
+  // a warp a head: weight of split s = 2^(m_s - M) / L, L = sum of 2^(m_s - M) l_s,
+  // written over the split's m (only this block reads the partials now)
+  float* part0 = p.part + ((long long)b * p.H + (long long)kvh * G) * n_splits * pstride;
+  for (int g = warp; g < G; g += nwarps) {
+    float* pg = part0 + (long long)g * n_splits * pstride;  // [n_splits][pstride]
+    float mx = -INFINITY;
+    for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, __ldcg(pg + s * pstride + p.dh));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float lsum = 0.f;
+    for (int s = lane; s < n_splits; s += 32) {
+      const float ms = __ldcg(pg + s * pstride + p.dh);
+      if (ms != -INFINITY) lsum += __ldcg(pg + s * pstride + p.dh + 1) * exp2f(ms - mx);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+    // an empty cache (every m = -inf) gives weights 0: exact zeros
+    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+    for (int s = lane; s < n_splits; s += 32) {
+      const float ms = __ldcg(pg + s * pstride + p.dh);
+      pg[s * pstride + p.dh] = (ms == -INFINITY) ? 0.f : exp2f(ms - mx) * inv;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < G * p.dh; idx += blockDim.x) {
+    const int g = idx / p.dh;
+    const int d = idx % p.dh;
+    const float* pg = part0 + (long long)g * n_splits * pstride;
+    float out = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < n_splits; ++s)
+      out = fmaf(__ldcg(pg + s * pstride + p.dh), __ldcg(pg + s * pstride + d), out);
+    obase[(long long)(kvh * G + g) * p.o_h + d] = from_f32<TQ>(out);
+  }
+  if (tid == 0) *counter = 0;  // ready for the next launch
 }
 
 template <typename TQ, typename TKV, int EPL, int GC>
-cudaError_t launch_one(DecodeParams p, int threads, cudaStream_t stream) {
+cudaError_t launch_one(DecodeParams p, int threads, int n_splits, cudaStream_t stream) {
   constexpr int DHP = TPR * EPL;
   auto kern = decode_kernel<TQ, TKV, EPL, GC>;
-  const int nwarps = threads / 32;
-  const size_t smem = ((size_t)GC * DHP + (size_t)nwarps * GC * (2 + DHP)) * sizeof(float);
+  const int rows = threads / TPR;
+  const size_t smem =
+      ((size_t)2 * GC * DHP + (size_t)rows * DHP + (size_t)GC * rows + 3 * GC) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -256,25 +400,25 @@ cudaError_t launch_one(DecodeParams p, int threads, cudaStream_t stream) {
                        (p.k_h * esz % 16 == 0) && (p.v_b * esz % 16 == 0) &&
                        (p.v_s * esz % 16 == 0) && (p.v_h * esz % 16 == 0);
   p.vec_ok = (aligned && p.dh == DHP && (EPL * esz) % 16 == 0) ? 1 : 0;
-  const dim3 grid(p.K, p.B);
+  const dim3 grid(p.K, p.B, n_splits);
   kern<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, int EPL>
-cudaError_t launch_gc(const DecodeParams& p, int threads, cudaStream_t stream) {
+cudaError_t launch_gc(const DecodeParams& p, int threads, int n_splits, cudaStream_t stream) {
   const int G = p.H / p.K;
-  if (G == 1) return launch_one<TQ, TKV, EPL, 1>(p, threads, stream);
-  if (G <= 4) return launch_one<TQ, TKV, EPL, 4>(p, threads, stream);
-  return launch_one<TQ, TKV, EPL, 8>(p, threads, stream);
+  if (G == 1) return launch_one<TQ, TKV, EPL, 1>(p, threads, n_splits, stream);
+  if (G <= 4) return launch_one<TQ, TKV, EPL, 4>(p, threads, n_splits, stream);
+  return launch_one<TQ, TKV, EPL, 8>(p, threads, n_splits, stream);
 }
 
 template <typename TQ, typename TKV>
-cudaError_t launch_t(const DecodeParams& p, int threads, cudaStream_t stream) {
-  if (p.dh <= 16) return launch_gc<TQ, TKV, 2>(p, threads, stream);
-  if (p.dh <= 32) return launch_gc<TQ, TKV, 4>(p, threads, stream);
-  if (p.dh <= 64) return launch_gc<TQ, TKV, 8>(p, threads, stream);
-  if (p.dh <= 128) return launch_gc<TQ, TKV, 16>(p, threads, stream);
+cudaError_t launch_t(const DecodeParams& p, int threads, int n_splits, cudaStream_t stream) {
+  if (p.dh <= 16) return launch_gc<TQ, TKV, 2>(p, threads, n_splits, stream);
+  if (p.dh <= 32) return launch_gc<TQ, TKV, 4>(p, threads, n_splits, stream);
+  if (p.dh <= 64) return launch_gc<TQ, TKV, 8>(p, threads, n_splits, stream);
+  if (p.dh <= 128) return launch_gc<TQ, TKV, 16>(p, threads, n_splits, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -284,21 +428,27 @@ cudaError_t launch_t(const DecodeParams& p, int threads, cudaStream_t stream) {
 // over a bf16 cache.  The output has the query's type.  Strides are in
 // elements; the last dimension of every tensor is contiguous.  block_kv is
 // the number of cache rows a block keeps in flight (block_kv * 8 threads).
-// Returns the cudaError_t of the launch (0 = launched).
+// n_splits > 1 needs `part` (B*H*n_splits*(dh+2) floats) and `counter` (B*K
+// ints, all zero; zero again when the kernel ends).  Returns the cudaError_t
+// of the launch (0 = launched).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* lengths, void* o, int dtype, int B, int H, int K,
-                                    int dh, int Smax, long long q_b, long long q_h, long long k_b,
-                                    long long k_s, long long k_h, long long v_b, long long v_s,
-                                    long long v_h, long long o_b, long long o_h, float scale,
-                                    int block_kv, void* stream) {
+                                    const void* lengths, void* o, void* part, void* counter,
+                                    int dtype, int B, int H, int K, int dh, int Smax,
+                                    long long q_b, long long q_h, long long k_b, long long k_s,
+                                    long long k_h, long long v_b, long long v_s, long long v_h,
+                                    long long o_b, long long o_h, float scale, int block_kv,
+                                    int n_splits, void* stream) {
   if (B <= 0 || H <= 0) return (int)cudaSuccess;  // nothing to compute
   const int threads = block_kv * TPR;
-  if (threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || K < 1 || H % K != 0)
+  if (threads < 32 || threads > MAX_THREADS || threads % 32 != 0 || K < 1 || H % K != 0 ||
+      n_splits < 1 || n_splits > 65535 || (n_splits > 1 && (part == nullptr || counter == nullptr)))
     return (int)cudaErrorInvalidValue;
   DecodeParams p;
   p.q = q; p.k = k; p.v = v;
   p.lengths = reinterpret_cast<const int*>(lengths);
   p.o = o;
+  p.part = reinterpret_cast<float*>(part);
+  p.counter = reinterpret_cast<int*>(counter);
   p.B = B; p.H = H; p.K = K; p.dh = dh; p.Smax = Smax;
   p.q_b = q_b; p.q_h = q_h;
   p.k_b = k_b; p.k_s = k_s; p.k_h = k_h;
@@ -308,8 +458,8 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   p.vec_ok = 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == 0) e = launch_t<float, float>(p, threads, st);
-  else if (dtype == 1) e = launch_t<__nv_bfloat16, __nv_bfloat16>(p, threads, st);
-  else if (dtype == 2) e = launch_t<float, __nv_bfloat16>(p, threads, st);
+  if (dtype == 0) e = launch_t<float, float>(p, threads, n_splits, st);
+  else if (dtype == 1) e = launch_t<__nv_bfloat16, __nv_bfloat16>(p, threads, n_splits, st);
+  else if (dtype == 2) e = launch_t<float, __nv_bfloat16>(p, threads, n_splits, st);
   return (int)e;
 }

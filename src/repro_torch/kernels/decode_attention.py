@@ -5,9 +5,18 @@ reference package (src/repro/kernels/decode_attention.py).  The source file
 says what bounds the kernel on this card and what its design does about it;
 this module is the wrapper: it checks the tensors, lowers ``block_kv`` (the
 cache rows a block keeps in flight, 8 threads each) to what a block can
-run, launches on PyTorch's current stream and counts the launch.
-``decode_attention_plain`` is the same arithmetic in plain PyTorch: the CPU
-path, and what the kernel is held against on the card.
+run, picks the number of cache splits, launches on PyTorch's current stream
+and counts the launch.  ``decode_attention_plain`` is the same arithmetic in
+plain PyTorch: the CPU path, and what the kernel is held against on the
+card.
+
+The cache axis is split over blocks (flash-decoding) in one launch:
+``split_count(B, K, Smax, block_kv, sms)`` asks for two blocks per SM at
+most, ``floor(2 * sms / (B * K))``, so that they run in one wave, and no
+more splits than trips of ``block_kv`` rows in ``Smax``.  It reads shapes
+only, never ``lengths`` (which stays on the device); each split takes
+``ceil(lengths[b] / n_splits)`` rows of its sequence.  The count a call ran
+with is kept in ``decode_attention.last_splits``.
 
 The cache may be stored narrower than the query (a bf16 cache under an
 fp32 query): the kernel widens it in registers, which is exact.
@@ -34,10 +43,12 @@ _DTYPE_CODE = {
     (torch.bfloat16, torch.bfloat16): 1,
     (torch.float32, torch.bfloat16): 2,
 }
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_int,
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p])
 _FN = None
+_SMS: dict = {}       # device index -> SM count
+_COUNTERS: dict = {}  # device index -> zeroed int32 buffer of the split merge
 
 
 def _group_chunk(group: int) -> int:
@@ -45,11 +56,11 @@ def _group_chunk(group: int) -> int:
 
 
 def smem_bytes(block_kv: int, dh: int, group: int) -> int:
-    """Dynamic shared memory of one block: the group's queries and one
-    (m, l, acc) per warp and head for the final merge."""
+    """Dynamic shared memory of one block: the group's queries and
+    accumulators, one trip's V rows and scores, and (m, l, rescale) per
+    head."""
     dhp, gc = pad_head_dim(dh, "decode attention"), _group_chunk(group)
-    nwarps = block_kv * _TPR // 32
-    return (gc * dhp + nwarps * gc * (2 + dhp)) * 4
+    return (2 * gc * dhp + block_kv * dhp + gc * block_kv + 3 * gc) * 4
 
 
 def feasible(config: dict, shapes: dict, dtype=None) -> bool:
@@ -68,6 +79,22 @@ def effective_config(block_kv: int, H: int, K: int, dh: int) -> dict:
         floor=MIN_BLOCK_KV)}
 
 
+def split_count(B: int, K: int, Smax: int, block_kv: int, sms: int) -> int:
+    """Cache splits of one call: about two blocks per SM, and no more, so
+    that the splits run in one wave (the kernel fits two blocks an SM):
+    ``floor(2 * sms / (B * K))``; but at least one trip of ``block_kv`` rows
+    a split (at most ``ceil(Smax / block_kv)``), and at least 1."""
+    want = 2 * sms // max(B * K, 1)
+    cap = -(-max(Smax, 1) // block_kv)
+    return max(1, min(want, cap))
+
+
+def split_rows(lengths: torch.Tensor, n_splits: int) -> torch.Tensor:
+    """Rows of each split, per sequence: ``ceil(lengths / n_splits)``; split
+    ``s`` takes ``[s * r, min((s + 1) * r, length))``."""
+    return (lengths + n_splits - 1) // n_splits
+
+
 def decode_attention_plain(
     q: torch.Tensor,  # (B, H, dh)
     k: torch.Tensor,  # (B, Smax, K, dh)
@@ -75,26 +102,43 @@ def decode_attention_plain(
     lengths: torch.Tensor,  # (B,)
     *,
     scale: Optional[float] = None,
+    n_splits: int = 1,
 ) -> torch.Tensor:
     """One query token against the cache in plain PyTorch, fp32 throughout,
     GQA by index; rows at or past ``lengths[b]`` are masked and an empty
-    cache gives exact zeros."""
+    cache gives exact zeros.  With ``n_splits > 1`` the rows are cut as the
+    kernel cuts them (``split_rows``), each split gives its own ``(m, l,
+    acc)`` and the splits are merged with the kernel's rescaling; one split
+    is the unsplit arithmetic (its merge multiplies by 1)."""
     B, H, dh = q.shape
     _, Smax, K, _ = k.shape
     G = H // K
     scale = scale if scale is not None else dh ** -0.5
     qf = q.float().reshape(B, K, G, dh)
     s = torch.einsum("bkgd,bskd->bkgs", qf, k.float()) * scale
-    mask = (torch.arange(Smax, device=q.device)[None, :]
-            < lengths.to(q.device)[:, None])[:, None, None, :]
-    s = torch.where(mask, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    m_safe = torch.where(m == NEG_INF, 0.0, m)
-    p = torch.where(mask, torch.exp(s - m_safe), 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    alive = l > 0
-    out = torch.where(alive, acc / torch.where(alive, l, 1.0), 0.0)
+    lengths = lengths.to(q.device).clamp(0, Smax)
+    pos = torch.arange(Smax, device=q.device)[None, :]
+    # split of each row (rows past the length fall in no split)
+    which = pos // split_rows(lengths, n_splits).clamp(min=1)[:, None]
+    valid = pos < lengths[:, None]
+    parts = []
+    for sp in range(n_splits):
+        mask = (valid & (which == sp))[:, None, None, :]
+        ss = torch.where(mask, s, NEG_INF)
+        m = ss.amax(dim=-1, keepdim=True)
+        m_safe = torch.where(m == NEG_INF, 0.0, m)
+        p = torch.where(mask, torch.exp(ss - m_safe), 0.0)
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("bkgs,bskd->bkgd", p, v.float())))
+    # the merge: every split rescaled to the largest maximum
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_all = acc_all = 0.0
+    for m, l, acc in parts:
+        a = torch.where(m == NEG_INF, 0.0, torch.exp(m - mx))
+        l_all = l_all + l * a
+        acc_all = acc_all + acc * a
+    alive = l_all > 0
+    out = torch.where(alive, acc_all / torch.where(alive, l_all, 1.0), 0.0)
     return out.reshape(B, H, v.shape[-1]).to(q.dtype)
 
 
@@ -106,6 +150,27 @@ def _fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _sms(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The device's merge counters (all zero between launches), grown to at
+    least ``n``.  A graph captures the buffer a call used, so it must exist
+    before the capture: growing it while capturing raises."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    buf = _COUNTERS.get(idx)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode attention: the split-merge counters must be "
+                               "allocated before CUDA-graph capture; run one call eagerly first")
+        buf = _COUNTERS[idx] = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+    return buf
 
 
 def decode_attention(
@@ -133,6 +198,7 @@ def decode_attention(
     cfg = effective_config(block_kv, H, K, dh)
     decode_attention.last_config = cfg
     if q.device.type == "cpu":
+        decode_attention.last_splits = 1
         return decode_attention_plain(q, k, v, lengths, scale=scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"decode attention kernel: unsupported device {q.device}")
@@ -146,15 +212,22 @@ def decode_attention(
     q, k, v = (last_dim_contiguous(t) for t in (q, k, v))
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
+    n_splits = split_count(B, K, Smax, cfg["block_kv"], _sms(q.device))
+    decode_attention.last_splits = n_splits
+    part = cnt = None
+    if n_splits > 1:
+        part = torch.empty((B, H, n_splits, dh + 2), dtype=torch.float32, device=q.device)
+        cnt = _counters(q.device, B * K)
     with torch.cuda.device(q.device):
         err = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), code, B, H, K, dh, Smax,
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), code, B, H, K, dh, Smax,
             q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1),
-            scale, cfg["block_kv"],
+            scale, cfg["block_kv"], n_splits,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
@@ -165,3 +238,5 @@ def decode_attention(
 decode_attention.launches = 0
 #: the tiles the last call ran with (after clamping)
 decode_attention.last_config = None
+#: the cache splits the last call ran with (1 on the CPU)
+decode_attention.last_splits = None

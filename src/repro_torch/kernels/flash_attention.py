@@ -1,13 +1,29 @@
-"""Flash attention forward — CUDA C++ kernel for Hopper (csrc/flash_attention.cu).
+"""Flash attention forward — CUDA C++ kernels for Hopper (csrc/flash_attention.cu).
 
 Replaces the TPU kernel ``_flash_kernel`` / ``flash_attention`` of the
 reference package (src/repro/kernels/flash_attention.py).  The source file
-says what bounds the kernel on this card and what its design does about it;
-this module is the wrapper: it checks the tensors, lowers the tile request
-to what a block can hold, launches on PyTorch's current stream and counts
-the launch.  ``flash_attention_plain`` is the same tiled online-softmax
-arithmetic in plain PyTorch: the CPU path, and what the kernel is held
-against on the card.
+says what bounds the kernels on this card and what each design does about
+it; this module is the wrapper: it picks the kernel (``route``), checks the
+tensors, lowers the tile request to what that kernel can hold, launches on
+PyTorch's current stream and counts the launch.  ``flash_attention_plain``
+is the same tiled online-softmax arithmetic in plain PyTorch: the CPU path,
+and what the kernels are held against on the card.
+
+Which kernel takes a call (``route``):
+
+* ``"wgmma"`` — bf16 at ``block_q`` 64 or 128, ``dh == dv`` a multiple of
+  16 up to 128, and tensors TMA can read (16-byte aligned base, strides of
+  8 elements): warpgroup MMA fed by TMA through an mbarrier ring;
+  ``block_kv`` 16..128.
+* ``"mma"`` — every other bf16 call at ``block_q`` 16..128: ``mma.sync``
+  tensor-core kernel.
+* ``"tiled"`` — float32 at ``block_q`` 16..64: register-tiled FMA kernel
+  with ``cp.async`` staging; ``block_kv`` 16..64.
+* ``"fma"`` — ``block_q`` below 16, either type: one thread per query row.
+
+A request is clamped to the largest power of two that the routed kernel can
+launch (``effective_config``); the routing is between kernels of the port,
+and a call the routed kernel cannot take raises.
 """
 from __future__ import annotations
 
@@ -21,63 +37,130 @@ from repro_torch.kernels._tiles import clamp_tile, last_dim_contiguous, pad_head
 
 NEG_INF = float("-inf")
 
-#: what one block may use (Hopper: 227 KB of dynamic shared memory).  The
-#: fp32 kernel runs one thread per query row and is compiled for 256 at most;
-#: the bf16 tensor-core kernel runs a warp per 16 query rows, 8 warps at most.
+#: what one block may use (Hopper: 227 KB of dynamic shared memory), and the
+#: tiles each kernel is compiled for
 MAX_SMEM_BYTES = 232448
-MAX_BLOCK_Q = 256
-MAX_BLOCK_Q_MMA = 128
-_KC = 8  # keys per softmax update in the fp32 kernel: its smallest K/V tile
-_KCH = 32  # the same for the tensor-core kernel
+MAX_BLOCK_Q = 256        # "fma": one thread per query row
+MAX_BLOCK_Q_MMA = 128    # "mma": a warp per 16 query rows, 8 warps at most
+WGMMA_BLOCK_Q = (64, 128)  # "wgmma": one or two warpgroups of 64 rows
+WGMMA_BLOCK_KV = (16, 128)  # "wgmma": K/V tile rows, powers of two in this range
+TILED_BLOCK = (16, 64)   # "tiled": block_q and block_kv, powers of two in this range
+_KC = 8  # keys per softmax update in the "fma" kernel: its smallest K/V tile
+_KCH = 32  # the same for the "mma" kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_CODE = {"fma": 0, "mma": 1, "wgmma": 2, "tiled": 3}
+_TMA_ENCODE_FAILED = 10000
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
              + [ctypes.c_longlong] * 12 + [ctypes.c_float]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _FN = None
 
 
+def route(block_q: int, dtype=None, dh: int = 64, dv: Optional[int] = None,
+          tma_ok: bool = True) -> str:
+    """The kernel that takes a call: ``"wgmma"``, ``"mma"``, ``"tiled"`` or
+    ``"fma"`` (see the module docstring).  ``dtype`` None is float32;
+    ``tma_ok`` says whether the tensors are aligned as TMA needs."""
+    dv = dh if dv is None else dv
+    if block_q < 16:
+        return "fma"
+    if dtype != torch.bfloat16:
+        return "tiled"
+    if (block_q in WGMMA_BLOCK_Q and dh == dv and dh % 16 == 0 and dh <= 128
+            and tma_ok):
+        return "wgmma"
+    return "mma"
+
+
 def uses_tensor_cores(block_q: int, dtype) -> bool:
-    """bf16 inputs at 16 or more query rows per block take the mma kernel;
-    everything else the fp32 FMA kernel."""
+    """bf16 inputs at 16 or more query rows per block run on the tensor
+    cores (the ``wgmma`` or the ``mma.sync`` kernel, see ``route``);
+    everything else on the FMA units."""
     return dtype == torch.bfloat16 and block_q >= 16
 
 
-def smem_bytes(block_kv: int, dh: int, dv: int, *, mma: bool = False) -> int:
-    """Dynamic shared memory of one block: the K and V tiles, fp32 for the
-    FMA kernel, bf16 with 16 bytes of row padding for the tensor-core one."""
-    name = "flash attention"
-    dhp, dvp = pad_head_dim(dh, name), pad_head_dim(dv, name)
-    if mma:
-        return max(block_kv, _KCH) * (dhp + 8 + dvp + 8) * 2
-    return max(block_kv, _KC) * (dhp + dvp) * 4
+def tma_aligned(*tensors: torch.Tensor) -> bool:
+    """Whether TMA can read each (B, S, heads, d) tensor in place: a 16-byte
+    aligned base and, in every dim of size > 1, a stride of a multiple of 8
+    elements (16 bytes)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+        for n, st in zip(t.shape[:3], t.stride()[:3]):
+            if n > 1 and (st <= 0 or st % 8):
+                return False
+    return True
+
+
+def smem_bytes(block_kv: int, dh: int, dv: int, *, kernel: str = "fma",
+               block_q: int = 64) -> int:
+    """Dynamic shared memory of one block of ``kernel``: the K and V tiles
+    (fp32 for "fma", bf16 with 16 bytes of row padding for "mma"; Q and a
+    ring of 2-4 stages of swizzled bf16 tiles for "wgmma"; Q, two stages of
+    padded fp32 tiles and P for "tiled").  Head dims are padded to the
+    compiled width of the larger of the two."""
+    dp = pad_head_dim(max(dh, dv), "flash attention")
+    if kernel == "mma":
+        return max(block_kv, _KCH) * 2 * (dp + 8) * 2
+    if kernel == "wgmma":
+        # Q, barriers and alignment slack, then as many K/V stages (2..4) as
+        # leave room for a second block on the SM
+        nch = 1 if dp <= 64 else 2
+        fixed, stage = 1024 + block_q * nch * 128 + 72, 2 * nch * block_kv * 128
+        return fixed + max(2, min(4, (MAX_SMEM_BYTES // 2 - fixed) // stage)) * stage
+    if kernel == "tiled":
+        return (block_q * (dp + 4) + 4 * block_kv * (dp + 4) + block_q * (block_kv + 4)) * 4
+    return max(block_kv, _KC) * 2 * dp * 4
+
+
+def _tile_limits(kernel: str):
+    """(smallest, largest) block_q and block_kv a kernel is compiled for."""
+    if kernel == "wgmma":
+        return WGMMA_BLOCK_Q, WGMMA_BLOCK_KV
+    if kernel == "tiled":
+        return TILED_BLOCK, TILED_BLOCK
+    if kernel == "mma":
+        return (16, MAX_BLOCK_Q_MMA), (1, None)
+    return (1, MAX_BLOCK_Q), (1, None)
 
 
 def feasible(config: dict, shapes: dict, dtype=None) -> bool:
     """Whether ``config`` (``block_q``, ``block_kv``) can launch at
-    ``shapes`` (``dh`` and optionally ``dv``) for inputs of ``dtype``
-    (``None``: float32): thread and shared-memory limits of one block."""
+    ``shapes`` (``dh``, optionally ``dv`` and ``tma_ok``) for inputs of
+    ``dtype`` (``None``: float32): the routed kernel's compiled tiles,
+    thread and shared-memory limits of one block."""
     dh = int(shapes["dh"])
     dv = int(shapes.get("dv", dh))
     bq, bkv = int(config["block_q"]), int(config["block_kv"])
-    mma = uses_tensor_cores(bq, dtype)
-    return (1 <= bq <= (MAX_BLOCK_Q_MMA if mma else MAX_BLOCK_Q)
-            and smem_bytes(bkv, dh, dv, mma=mma) <= MAX_SMEM_BYTES)
+    kernel = route(bq, dtype, dh, dv, bool(shapes.get("tma_ok", True)))
+    (q_lo, q_hi), (kv_lo, kv_hi) = _tile_limits(kernel)
+    if kernel in ("wgmma", "tiled") and (bq & (bq - 1) or bkv & (bkv - 1)):
+        return False  # compiled for powers of two only
+    return (q_lo <= bq <= q_hi and kv_lo <= bkv and (kv_hi is None or bkv <= kv_hi)
+            and smem_bytes(bkv, dh, dv, kernel=kernel, block_q=bq) <= MAX_SMEM_BYTES)
 
 
 def effective_config(block_q: int, block_kv: int, Sq: int, Sk: int,
-                     dh: int, dv: int, dtype=None) -> dict:
+                     dh: int, dv: int, dtype=None, tma_ok: bool = True) -> dict:
     """The tiles a request runs with: powers of two, not above the request,
-    not above the padded sequence, and feasible."""
-    shapes = {"dh": dh, "dv": dv}
+    not above the padded sequence, and feasible for the kernel the query
+    tile routes to (a ``block_kv`` below that kernel's smallest tile is
+    raised to it)."""
+    shapes = {"dh": dh, "dv": dv, "tma_ok": tma_ok}
+
+    def kv_floor(bq):
+        return _tile_limits(route(bq, dtype, dh, dv, tma_ok))[1][0]
+
     bq = clamp_tile(
         "block_q", block_q,
-        lambda t: feasible({"block_q": t, "block_kv": 1}, shapes, dtype),
+        lambda t: feasible({"block_q": t, "block_kv": kv_floor(t)}, shapes, dtype),
         cap=max(Sq, 1))
+    floor = kv_floor(bq)
     bkv = clamp_tile(
         "block_kv", block_kv,
         lambda t: feasible({"block_q": bq, "block_kv": t}, shapes, dtype),
-        cap=max(Sk, 1))
+        cap=max(Sk, 1), floor=floor)
     return {"block_q": bq, "block_kv": bkv}
 
 
@@ -168,8 +251,12 @@ def flash_attention(
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
     scale = float(scale) if scale is not None else dh ** -0.5
-    cfg = effective_config(block_q, block_kv, Sq, Sk, dh, dv, q.dtype)
+    q, k, v = (last_dim_contiguous(t) for t in (q, k, v))
+    tma_ok = tma_aligned(q, k, v)
+    cfg = effective_config(block_q, block_kv, Sq, Sk, dh, dv, q.dtype, tma_ok)
+    kernel = route(cfg["block_q"], q.dtype, dh, dv, tma_ok)
     flash_attention.last_config = cfg
+    flash_attention.last_kernel = kernel
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, block_kv=cfg["block_kv"])
@@ -180,7 +267,6 @@ def flash_attention(
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise RuntimeError("flash attention kernel: tensors lie on different devices")
-    q, k, v = (last_dim_contiguous(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         code = _fn()(
@@ -191,9 +277,12 @@ def flash_attention(
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             scale, int(bool(causal)), int(window) if window is not None else 0,
-            cfg["block_q"], cfg["block_kv"],
+            cfg["block_q"], cfg["block_kv"], _KERNEL_CODE[kernel],
             torch.cuda.current_stream().cuda_stream)
-    _build.check(code, "flash_attention")
+    if code >= _TMA_ENCODE_FAILED:
+        raise RuntimeError(f"flash attention kernel: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {code - _TMA_ENCODE_FAILED}")
+    _build.check(code, f"flash_attention ({kernel})")
     flash_attention.launches += 1
     return out
 
@@ -202,3 +291,5 @@ def flash_attention(
 flash_attention.launches = 0
 #: the tiles the last call ran with (after clamping)
 flash_attention.last_config = None
+#: the kernel the last call routed to (see ``route``)
+flash_attention.last_kernel = None

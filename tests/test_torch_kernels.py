@@ -263,22 +263,47 @@ def test_rmsnorm_grads_match_jax(impl):
 
 
 def test_tile_requests_are_clamped_to_feasible_powers_of_two():
-    # the Runtime default of 512 x 512 is more than a block can hold
+    # the Runtime default of 512 x 512 is more than a block can hold: fp32
+    # from 16 query rows on takes the register-tiled kernel (tiles 16..64)
     cfg = fla_mod.effective_config(512, 512, 512, 512, 64, 64)
-    assert cfg == {"block_q": 256, "block_kv": 256}
+    assert cfg == {"block_q": 64, "block_kv": 64}
+    assert fla_mod.route(64) == "tiled"
     assert fla_mod.feasible(cfg, {"dh": 64}) and not fla_mod.feasible(
         {"block_q": 512, "block_kv": 512}, {"dh": 64})
     assert fla_mod.smem_bytes(256, 64, 64) <= fla_mod.MAX_SMEM_BYTES
-    # bf16 takes the tensor-core kernel from 16 query rows on: a warp per 16
+    # two fp32 blocks of 64 x 64 fit an SM's shared memory
+    assert 2 * fla_mod.smem_bytes(64, 64, 64, kernel="tiled", block_q=64) <= \
+        fla_mod.MAX_SMEM_BYTES
+    assert not fla_mod.feasible({"block_q": 64, "block_kv": 128}, {"dh": 64})
+    # below 16 query rows the one-thread-a-row kernel takes any K/V tile
+    assert fla_mod.effective_config(8, 8, 512, 512, 64, 64) == {"block_q": 8, "block_kv": 8}
+    assert fla_mod.route(8) == fla_mod.route(8, torch.bfloat16) == "fma"
+    # bf16 at 64 or 128 query rows takes the wgmma kernel (K/V tiles 16..128),
+    # other bf16 calls from 16 rows on the mma.sync kernel: a warp per 16
     # rows, 8 warps at most, bf16 tiles
     assert fla_mod.effective_config(512, 512, 512, 512, 64, 64, torch.bfloat16) == \
-        {"block_q": 128, "block_kv": 512}
+        {"block_q": 128, "block_kv": 128}
+    assert fla_mod.route(128, torch.bfloat16) == fla_mod.route(64, torch.bfloat16) == "wgmma"
+    assert fla_mod.effective_config(64, 8, 512, 512, 64, 64, torch.bfloat16) == \
+        {"block_q": 64, "block_kv": 16}
+    assert fla_mod.route(32, torch.bfloat16) == "mma"
+    assert fla_mod.effective_config(32, 512, 512, 512, 64, 64, torch.bfloat16) == \
+        {"block_q": 32, "block_kv": 512}
+    # what wgmma cannot take goes to mma.sync: a head dim that is no multiple
+    # of 16, dv != dh, a view TMA cannot read
+    assert fla_mod.route(128, torch.bfloat16, dh=24) == "mma"
+    assert fla_mod.route(128, torch.bfloat16, dh=32, dv=16) == "mma"
+    assert fla_mod.route(128, torch.bfloat16, tma_ok=False) == "mma"
+    assert fla_mod.effective_config(512, 512, 512, 512, 64, 64, torch.bfloat16,
+                                    tma_ok=False) == {"block_q": 128, "block_kv": 512}
     assert fla_mod.effective_config(8, 8, 512, 512, 64, 64, torch.bfloat16) == \
         {"block_q": 8, "block_kv": 8}
     assert fla_mod.uses_tensor_cores(16, torch.bfloat16)
+    assert fla_mod.uses_tensor_cores(128, torch.bfloat16)
     assert not fla_mod.uses_tensor_cores(8, torch.bfloat16)
     assert not fla_mod.uses_tensor_cores(128, torch.float32)
     assert not fla_mod.feasible({"block_q": 256, "block_kv": 64}, {"dh": 64}, torch.bfloat16)
+    assert not fla_mod.feasible({"block_q": 128, "block_kv": 256}, {"dh": 64}, torch.bfloat16)
     # never above the request, never above the padded sequence
     assert fla_mod.effective_config(100, 48, 1000, 1000, 16, 16) == {"block_q": 64, "block_kv": 32}
     assert fla_mod.effective_config(128, 128, 37, 29, 16, 16) == {"block_q": 64, "block_kv": 32}
