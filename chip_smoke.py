@@ -55,7 +55,10 @@ SWEEP = [
 ]
 
 # B, S, D, N, chunk, block_d — the reference's ssm table, then ragged and
-# clamped knobs, a state size that is padded, the largest state size
+# clamped knobs, a state size that is padded, the largest state size; then
+# the lane split (8 states a lane: 1, 2, 4, 8 lanes) and every group split
+# (1 to 32 blocks a group), a D that is no multiple of block_d inside a split
+# group, N = 1 and 64, one step a chunk, fewer steps than one group of steps
 SSM_CASES = [
     (1, 16, 8, 4, 8, 8),
     (2, 50, 12, 8, 16, 8),
@@ -65,18 +68,45 @@ SSM_CASES = [
     (1, 40, 70, 5, 16, 32),
     (1, 24, 40, 64, 8, 256),
     (1, 20, 33, 33, 1000, 1000),
+    (2, 40, 600, 4, 16, 8),        # groups of 1
+    (2, 64, 8192, 16, 32, 128),    # groups of 4
+    (2, 30, 8192, 16, 128, 256),   # groups of 8, the sweep's widths
+    (1, 20, 8192, 16, 128, 256),   # groups of 16, one sequence
+    (1, 50, 1001, 32, 32, 256),    # 4 lanes, the last group ragged inside a block
+    (2, 40, 100, 1, 16, 32),       # N = 1
+    (2, 70, 300, 64, 64, 128),     # N = 64
+    (1, 30, 64, 16, 1, 64),        # chunk 1
+    (1, 5, 64, 16, 128, 64),       # S < one group of steps
 ]
 # B, S, H, dk, dv, chunk — the reference's gla table, then a padded key dim,
-# a value dim split over two blocks, the largest key dim, one step a chunk
+# a value dim split over blocks, the largest key dim, one step a chunk; then
+# every lane count (dk 8 to 128: 2 to 32 lanes; 8 rows a lane, 4 for a
+# block of one warp or alone on its SM) and every column split (64, 32, 16, 8 columns a block, the
+# last block ragged), fewer steps than one group of steps
 GLA_CASES = [
     (1, 16, 2, 8, 8, 8),
     (2, 45, 3, 8, 8, 16),
     (1, 40, 4, 16, 16, 8),
     (2, 70, 3, 24, 40, 32),
-    (1, 33, 2, 64, 600, 16),
+    (1, 33, 2, 64, 600, 16),       # 8 columns a block
     (1, 50, 2, 128, 64, 64),
     (1, 30, 1, 8, 8, 1),
+    (2, 20, 70, 8, 70, 16),        # 64 columns a block, ragged
+    (2, 20, 40, 16, 50, 16),       # 32 columns a block, ragged
+    (2, 30, 40, 64, 64, 64),       # 32 columns a block, the sweep's widths
+    (1, 20, 40, 64, 64, 64),       # 16 columns a block, one sequence
+    (1, 20, 2, 16, 100, 128),      # 64 columns a block, two blocks, ragged
+    (1, 40, 3, 128, 72, 32),       # dk 128, 64 columns a block, ragged
+    (1, 5, 2, 64, 64, 64),         # S < one group of steps
+    (1, 300, 2, 64, 64, 128),      # a block alone on its SM: twice the lanes
 ]
+# the splits the cases above must cover
+SSM_COVER = {"lanes": {1, 2, 4, 8}, "groups": {1, 2, 4, 8, 16, 32}}
+GLA_COVER = {"lanes": {2, 4, 8, 16, 32}, "cols": {8, 16, 32, 64}}
+# the H100's maximum boost clock, for the SFU bound (16 exponentials a
+# clock an SM)
+SM_CLOCK_HZ = 1.98e9
+SFU_PER_SM_CLOCK = 16
 
 SERVE_ARGS = ["--arch", "qwen2-0.5b", "--no-reduced", "--dtype", "bf16",
               "--requests", "16", "--prompt-len", "512", "--gen-len", "64",
@@ -563,15 +593,21 @@ def phase_kernels(cx):
 
 
 def _scan_kernels(rand, dtypes, checked, worst, at_main):
-    """The two scans: the reference's tables and edge cases against the
-    plain versions, then the sweep's full-width shapes (error, time, plain
-    time, bound).  No single PyTorch call computes either scan, so there is
-    no library time."""
+    """The two scans: the reference's tables and the split edge cases
+    against the plain versions (and against the plain versions cut as the
+    kernel cut them), then the sweep's full-width shapes and one long
+    sequence (error, time, plain time, bound, split, blocks against SMs;
+    for gla, CUDA's occupancy answer against the split rule's model of it).
+    No single PyTorch call computes either scan, so there is no library
+    time."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import gla_scan as gla
     from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.kernels._tiles import sm_count
+
+    sms = sm_count(torch.device("cuda"))
 
     def ssm_args(B, S, D, N, dt):
         # the reference test's distributions
@@ -584,62 +620,106 @@ def _scan_kernels(rand, dtypes, checked, worst, at_main):
         return (rand(B, S, H, dk, dtype=dt), rand(B, S, H, dk, dtype=dt),
                 rand(B, S, H, dv, dtype=dt), w.to(dt), rand(H, dk, dtype=torch.float32))
 
+    def misaligned(t):
+        # the same values 4 bytes past a 16-byte boundary: staged by plain loads
+        flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        off = 4 // t.element_size()
+        view = flat[off:off + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+
+    seen = {"ssm_scan": {"lanes": set(), "groups": set()},
+            "gla_scan": {"lanes": set(), "cols": set()}}
     for name, dt in dtypes.items():
-        for B, S, D, N, chunk, block_d in SSM_CASES:
+        tol = TOL["ssm_scan"][name]
+        for i, (B, S, D, N, chunk, block_d) in enumerate(SSM_CASES + [(2, 37, 96, 16, 16, 32)]):
             a = ssm_args(B, S, D, N, dt)
+            label = f"{name} B={B} S={S} D={D} N={N} chunk={chunk} block_d={block_d}"
+            if i == len(SSM_CASES):  # B and C 4 bytes off a 16-byte boundary
+                a = a[:3] + (misaligned(a[3]), misaligned(a[4])) + a[5:]
+                label += " misaligned B/C"
             got = ssm.ssm_scan(*a, chunk=chunk, block_d=block_d)
+            sp = ssm.ssm_scan.last_split
             want = ssm.ssm_scan_plain(*a)
             torch.cuda.synchronize()
-            e = check_close("ssm_scan", f"{name} B={B} S={S} D={D} N={N} chunk={chunk} "
-                            f"block_d={block_d}", got, want, TOL["ssm_scan"][name])
+            e = check_close("ssm_scan", f"{label} {sp}", got, want, tol)
+            check_close("ssm_scan", f"{label} plain lanes={sp['lanes']}", got,
+                        ssm.ssm_scan_plain(*a, lanes=sp["lanes"]), tol)
             worst["ssm_scan"][name] = max(worst["ssm_scan"][name], e)
             checked["ssm_scan"] += 1
-        for B, S, H, dk, dv, chunk in GLA_CASES:
+            seen["ssm_scan"]["lanes"].add(sp["lanes"])
+            seen["ssm_scan"]["groups"].add(sp["groups"])
+        tol = TOL["gla_scan"][name]
+        for i, (B, S, H, dk, dv, chunk) in enumerate(GLA_CASES + [(1, 37, 3, 64, 64, 16)]):
             a = gla_args(B, S, H, dk, dv, dt)
+            label = f"{name} B={B} S={S} H={H} dk={dk} dv={dv} chunk={chunk}"
+            if i == len(GLA_CASES):  # r, k, w 4 bytes off a 16-byte boundary
+                a = (misaligned(a[0]), misaligned(a[1]), a[2], misaligned(a[3]), a[4])
+                label += " misaligned r/k/w"
             got = gla.gla_scan(*a, chunk=chunk)
+            sp = gla.gla_scan.last_split
             want = gla.gla_scan_plain(*a)
             torch.cuda.synchronize()
-            e = check_close("gla_scan", f"{name} B={B} S={S} H={H} dk={dk} dv={dv} "
-                            f"chunk={chunk}", got, want, TOL["gla_scan"][name])
+            e = check_close("gla_scan", f"{label} {sp}", got, want, tol)
+            check_close("gla_scan", f"{label} plain lanes={sp['lanes']}", got,
+                        gla.gla_scan_plain(*a, lanes=sp["lanes"]), tol)
             worst["gla_scan"][name] = max(worst["gla_scan"][name], e)
             checked["gla_scan"] += 1
+            seen["gla_scan"]["lanes"].add(sp["lanes"])
+            seen["gla_scan"]["cols"].add(sp["cols"])
+    for kname, cover in (("ssm_scan", SSM_COVER), ("gla_scan", GLA_COVER)):
+        for key, want in cover.items():
+            if not want <= seen[kname][key]:
+                raise AssertionError(f"{kname}: the cases missed a {key} split: "
+                                     f"{sorted(seen[kname][key])} lack {sorted(want)}")
 
-    def at_shape(kname, shape_s, fn, plain, sets, nbytes, flops, name):
+    def at_shape(kname, shape_s, fn, plain, sets, nbytes, flops, name, exps=0):
+        """Error, time, plain time and bound at one shape."""
         got = fn(*sets[0])
-        cfg = dict(fn.last_config)
+        cfg, sp = dict(fn.last_config), dict(fn.last_split)
         want = plain(*sets[0])
         e = check_close(kname, f"{name} {shape_s}", got, want, TOL[kname][name])
         del got, want
         ms, eager_ms = time_ms(fn, sets)
         # the plain version is a loop of ~10 small launches per step: one call
         plain_ms, _ = time_ms(plain, sets[:1], warmup=1, min_iters=1, replays=1)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["f32"] * 1e3
-        return {"dtype": name, "shape": shape_s, "config": cfg, "max_abs_err": e, "ms": ms,
-                "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": None,
-                "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes, "operations_ms": t_ops,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+                 "operations": flops / PEAK_FLOPS["f32"] * 1e3}
+        if exps:
+            terms["exponentials"] = exps / (SFU_PER_SM_CLOCK * sms * SM_CLOCK_HZ) * 1e3
+        by = max(terms, key=terms.get)
+        ctas = sp.get("ctas", sp.get("blocks"))
+        return {"dtype": name, "shape": shape_s, "config": cfg, "split": sp, "ctas": ctas,
+                "sms": sms, "max_abs_err": e, "ms": ms, "eager_ms": eager_ms,
+                "plain_ms": plain_ms, "library_ms": None, "bound_ms": terms[by],
+                "bytes_ms": terms["bytes"], "operations_ms": terms["operations"],
+                "sfu_ms": terms.get("exponentials"), "bound_by": by,
+                "share_of_bound": terms[by] / ms}
 
-    # ssm: the sweep's builder distributions; fp32 arithmetic whatever the input type
+    # ssm: the sweep's builder distributions; fp32 arithmetic whatever the
+    # input type; the sweep's shape, then one long sequence
     s = SWEEP_SHAPES["ssm_scan"]
-    B, S, D, N = s["B"], s["S"], s["D"], s["N"]
+    D, N = s["D"], s["N"]
     rows = []
-    for name, dt in dtypes.items():
+    for (B, S), name in ((bs, n) for bs in ((s["B"], s["S"]), (1, 8192)) for n in dtypes):
+        dt = dtypes[name]
         esz = 4 if name == "f32" else 2
         nbytes = (3 * B * S * D + 2 * B * S * N) * esz + (D * N + D) * 4
-        flops = 7 * B * S * D * N  # exp, dt*A, two FMAs on the state, dt*x*B
+        flops = 6 * B * S * D * N  # dt*A, dt*x*B, two multiply-adds on the state
         sets = [(rand(B, S, D, dtype=dt), F.softplus(rand(B, S, D, dtype=torch.float32)).to(dt),
                  -torch.exp(rand(D, N, dtype=torch.float32)), rand(B, S, N, dtype=dt),
                  rand(B, S, N, dtype=dt), torch.ones(D, device="cuda"))
                 for _ in range(n_sets_for(nbytes))]
         rows.append(at_shape("ssm_scan", f"B={B} S={S} D={D} N={N}", ssm.ssm_scan,
-                             ssm.ssm_scan_plain, sets, nbytes, flops, name))
+                             ssm.ssm_scan_plain, sets, nbytes, flops, name, exps=B * S * D * N))
         del sets
     at_main["ssm_scan"] = rows
 
     s = SWEEP_SHAPES["gla_scan"]
-    B, S, H, dk, dv = s["B"], s["S"], s["H"], s["dk"], s["dv"]
+    H, dk, dv = s["H"], s["dk"], s["dv"]
     rows = []
-    for name, dt in dtypes.items():
+    for (B, S), name in ((bs, n) for bs in ((s["B"], s["S"]), (1, 8192)) for n in dtypes):
+        dt = dtypes[name]
         esz = 4 if name == "f32" else 2
         nbytes = B * S * H * (3 * dk + 2 * dv) * esz + H * dk * 4
         flops = B * S * H * (4 * dk * dv + 3 * dk + 2 * dv)
@@ -647,10 +727,25 @@ def _scan_kernels(rand, dtypes, checked, worst, at_main):
                  rand(B, S, H, dv, dtype=dt),
                  torch.exp(-torch.exp(rand(B, S, H, dk, dtype=torch.float32))).to(dt),
                  rand(H, dk, dtype=torch.float32)) for _ in range(n_sets_for(nbytes))]
-        rows.append(at_shape("gla_scan", f"B={B} S={S} H={H} dk={dk} dv={dv}", gla.gla_scan,
-                             gla.gla_scan_plain, sets, nbytes, flops, name))
+        cfg = gla.effective_config(128, S, dk, dv)  # the wrapper's default request
+        sp = gla.split(B, H, dk, dv, sms, cfg["chunk"])
+        # the split rule counts waves with its own model of the blocks an SM
+        # holds: CUDA's occupancy answer must not be below it
+        resident = gla.resident_blocks(dt, dk, cfg["chunk"], sp["lanes"], sp["cols"])
+        rule = gla.resident(cfg["chunk"], dk, sp["cols"], sp["lanes"])
+        if resident < rule:
+            raise AssertionError(f"gla_scan: CUDA holds {resident} blocks an SM at {sp}, "
+                                 f"the split rule counted {rule}")
+        rows.append(dict(at_shape("gla_scan", f"B={B} S={S} H={H} dk={dk} dv={dv}",
+                                  gla.gla_scan, gla.gla_scan_plain, sets, nbytes, flops, name),
+                         resident_per_sm=resident, resident_per_sm_rule=rule))
         del sets
     at_main["gla_scan"] = rows
+    for kname in ("ssm_scan", "gla_scan"):
+        row = at_main[kname][0]  # f32 at the sweep's shape, the default request
+        if row["ctas"] < sms:
+            raise AssertionError(f"{kname}: {row['ctas']} blocks at the sweep's shape leave SMs "
+                                 f"idle ({sms} SMs)")
 
 
 def _full_model(cx):
@@ -1016,7 +1111,8 @@ def kernels_line(cx):
     """The contract line: one entry per kernel, at the main path's shape and
     type.  The served kernels (bf16; the RMSNorm entry is the prefill one,
     rows = 8*512) count their launches in the ``serve`` phase; the scans
-    (f32, the sweep's type) in the ``sweep`` phase, which is their path."""
+    (f32, the sweep's type and shape) in the ``sweep`` phase, which is their
+    path."""
     meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
@@ -1028,21 +1124,25 @@ def kernels_line(cx):
                              "src/repro/kernels/decode_attention.py:112", "bf16",
                              "B=8 Smax=576 len=575 H=14 K=2 dh=64", cx.launches),
         "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
-                     "src/repro/kernels/ssm_scan.py:89", "f32", None, cx.sweep_launches),
+                     "src/repro/kernels/ssm_scan.py:89", "f32", "B=2 S=2048 D=8192 N=16",
+                     cx.sweep_launches),
         "gla_scan": ("cuda", "src/repro_torch/kernels/csrc/gla_scan.cu",
-                     "src/repro/kernels/gla_scan.py:89", "f32", None, cx.sweep_launches),
+                     "src/repro/kernels/gla_scan.py:89", "f32", "B=2 S=2048 H=40 dk=64 dv=64",
+                     cx.sweep_launches),
     }
     out = []
     for name, (route, source, replaces, dtype, shape, counts) in meta.items():
         row = next(r for r in cx.at_main[name]
-                   if r["dtype"] == dtype and (shape is None or r["shape"] == shape))
+                   if r["dtype"] == dtype and r["shape"] == shape)
         launches = counts[name]
         if launches <= 0:
             raise AssertionError(f"{name}: not launched on the main path")
+        # an exponential is an operation (on the special-function units)
+        by = "bytes" if row["bound_by"] == "bytes" else "operations"
         out.append({"name": name, "route": route, "source": source, "replaces": replaces,
                     "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                    "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                    "bound_by": by, "library_ms": row["library_ms"],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
 

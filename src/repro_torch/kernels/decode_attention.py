@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._tiles import clamp_tile, last_dim_contiguous, pad_head_dim
+from repro_torch.kernels._tiles import clamp_tile, last_dim_contiguous, pad_head_dim, sm_count
 
 NEG_INF = float("-inf")
 
@@ -47,7 +47,6 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p])
 _FN = None
-_SMS: dict = {}       # device index -> SM count
 _COUNTERS: dict = {}  # device index -> zeroed int32 buffer of the split merge
 
 
@@ -152,13 +151,6 @@ def _fn():
     return _FN
 
 
-def _sms(dev: torch.device) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
 def _counters(dev: torch.device, n: int) -> torch.Tensor:
     """The device's merge counters (all zero between launches), grown to at
     least ``n``.  A graph captures the buffer a call used, so it must exist
@@ -212,7 +204,7 @@ def decode_attention(
     q, k, v = (last_dim_contiguous(t) for t in (q, k, v))
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, H, dh), dtype=q.dtype, device=q.device)
-    n_splits = split_count(B, K, Smax, cfg["block_kv"], _sms(q.device))
+    n_splits = split_count(B, K, Smax, cfg["block_kv"], sm_count(q.device))
     decode_attention.last_splits = n_splits
     part = cnt = None
     if n_splits > 1:

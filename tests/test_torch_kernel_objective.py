@@ -88,7 +88,7 @@ def test_unknown_kernel_is_loud():
 
 
 @pytest.mark.parametrize("name,point", [
-    ("ssm_scan", {"chunk": 64, "block_d": 1024}),      # > 512 threads at N=16
+    ("ssm_scan", {"chunk": 1024, "block_d": 1024}),    # B/C double-buffered > 227 KB
     ("ssm_scan", {"chunk": 2048, "block_d": 64}),      # B/C staging > 227 KB
     ("gla_scan", {"chunk": 512}),                      # r/k/w staging > 227 KB
     ("flash_attention", {"block_q": 512, "block_kv": 64}),

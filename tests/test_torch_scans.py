@@ -237,20 +237,23 @@ def test_gla_grads_through_the_autograd_pairing_match_jax():
 
 
 def test_scan_knobs_are_clamped_and_checked():
-    # Jamba's mixer: N=16 -> 512 threads at most, B/C staging in 227 KB
-    assert ssm_mod.max_threads(16) == 512 and ssm_mod.max_threads(8) == 1024
+    # Jamba's mixer: N=16 -> 8 states a lane, 2 lanes a channel; any block_d
+    # launches (a group is split over blocks of <= 512 threads); B/C staging
+    # double-buffered in 227 KB
+    assert ssm_mod.lanes_for(16) == 2 and ssm_mod.lanes_for(8) == 1
     assert ssm_mod.feasible({"chunk": 128, "block_d": 256}, {"N": 16})
-    assert not ssm_mod.feasible({"chunk": 128, "block_d": 1024}, {"N": 16})
-    assert not ssm_mod.feasible({"chunk": 2048, "block_d": 256}, {"N": 16})  # 256 KB
+    assert ssm_mod.feasible({"chunk": 128, "block_d": 1024}, {"N": 16})
+    assert not ssm_mod.feasible({"chunk": 2048, "block_d": 256}, {"N": 16})  # 512 KB
     assert not ssm_mod.feasible({"chunk": 8, "block_d": 8}, {"N": 65})
     assert ssm_mod.effective_config(2048, 8192, 2048, 8192, 16) == \
-        {"chunk": 1024, "block_d": 512}
+        {"chunk": 512, "block_d": 8192}
     assert ssm_mod.effective_config(128, 256, 50, 12, 8) == {"chunk": 64, "block_d": 16}
-    # RWKV-6: dk=dv=64 -> chunk <= 128 of r/k/w/v staged
+    # RWKV-6: dk=dv=64 -> chunk <= 128 of r/k/w/v staged, double-buffered
     assert gla_mod.feasible({"chunk": 128}, {"dk": 64, "dv": 64})
     assert not gla_mod.feasible({"chunk": 256}, {"dk": 64, "dv": 64})
     assert not gla_mod.feasible({"chunk": 8}, {"dk": 256, "dv": 64})
-    assert gla_mod.block_cols(64, 600) == 512 and gla_mod.block_cols(128, 64) == 64
+    assert gla_mod.block_cols(2, 40, 64, 64, 132, 64) == 32
+    assert gla_mod.block_cols(1, 2, 64, 600, 132, 64) == 8
     assert gla_mod.effective_config(2048, 2048, 64, 64) == {"chunk": 128}
     assert gla_mod.effective_config(64, 45, 8, 8) == {"chunk": 64}
 
