@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, needs one card
     python3 chip_smoke.py --phases env,build,kernels
+    python3 chip_smoke.py --phases env,build,bo,service
 
 Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
@@ -13,8 +14,13 @@ the tuning loop: it tunes all five kernels at full-width shapes
 (``repro_torch.benchmarks.kernel_sweep``), persists the answers in a
 ``TuningDB``, re-runs warm (nothing is measured again) and serves the model
 with the DB, checking that the served kernels ran with the swept tiles.
-Each phase prints JSON lines; any failure ends the run with a non-zero exit
-code.  The last line is ``{"ok": true, "device": {...}}``.
+The ``bo`` phase runs the same loop with Bayesian optimisation, recording
+every measurement into a transfer corpus, and times one GP fit + ranking
+on the CPU and on the card; the ``service`` phase starts a measurement
+worker on the card and the tuning service as processes of their own and
+runs one BO job through them.  Each phase prints JSON lines; any failure
+ends the run with a non-zero exit code.  The last line is
+``{"ok": true, "device": {...}}``.
 
 There is no CPU mode: without a card the script fails at once.
 """
@@ -25,6 +31,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -125,6 +132,16 @@ SWEEP_SHAPES = {
     "rmsnorm": {"rows": 4096, "D": 896},
 }
 SWEEP_ARGS = {"algorithm": "ga", "budget": 8, "seed": 0}
+# the same loop with the paper's best engine: BO, budget 12 capped at each grid
+# (LHS points + GP-ranked asks at these shapes: K1 5 + 5, K2 8 + 4, K3 3 + 4,
+# K4 8 + 4, K5 4 + 5)
+BO_ARGS = {"algorithm": "bo", "budget": 12, "seed": 0}
+# one GP fit + acquisition ranking, timed on the host's CPU and on the card
+BO_GP_ROWS = (8, 32, 128)
+BO_GP_CANDIDATES = 4096
+# the service phase: one BO job over ssm_scan's feasible space (77 points at
+# the sweep shape), through a worker process on the card
+SERVICE_BUDGET = 8
 # served in f32, the type the sweep measured (a TuningDB key has no type)
 SWEEP_SERVE_ARGS = ["--arch", "qwen2-0.5b", "--no-reduced", "--dtype", "f32",
                     "--requests", "8", "--prompt-len", "512", "--gen-len", "64",
@@ -1009,6 +1026,8 @@ def phase_sweep(cx):
     torch.cuda.synchronize()
     counts = _counts(mods)  # ... and read just after
     cx.sweep_launches = counts
+    cx.sweep_rows = {r["kernel"]: r for r in rows}
+    cx.sweep_defaults = {}
     for r in rows:
         if r["skipped"] or r["measurements"] <= 0 or not math.isfinite(r["value"]):
             raise AssertionError(f"sweep: {r['kernel']} was not measured: {r}")
@@ -1031,6 +1050,7 @@ def phase_sweep(cx):
         wall = WallClockEvaluator(lambda p, spec=spec, shape=shape: spec.build(shape, p, "cuda"),
                                   warmup=1, iters=2, rel_halfwidth=0.5)
         d_value, d_meta = wall({})
+        cx.sweep_defaults[name] = d_value
         recorded[name] = warm_db.lookup(name, shape)["config"]
         emit({"phase": "sweep", "kernel": name, "shape": shape, "dtype": "f32",
               "engine": SWEEP_ARGS["algorithm"], "budget": SWEEP_ARGS["budget"],
@@ -1107,12 +1127,268 @@ def phase_sweep(cx):
           "db_hits": served_db.hits, "pickup": pickup})
 
 
+def _kernel_wrappers():
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import gla_scan as gla
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssm_scan as ssm
+
+    return {"rmsnorm": rms.rmsnorm, "flash_attention": fla.flash_attention,
+            "decode_attention": dec.decode_attention, "ssm_scan": ssm.ssm_scan,
+            "gla_scan": gla.gla_scan}
+
+
+def _gp_ask_ms(device, rows, reps=5):
+    """Median ms of one GP fit + acquisition ranking of BO_GP_CANDIDATES
+    candidates on ``device`` (inputs made from a seed; one untimed call
+    first)."""
+    import numpy as np
+
+    from repro_torch.core.gp import GaussianProcess
+
+    rng = np.random.default_rng(rows)
+    X, Xs = rng.random((rows, 4)), rng.random((BO_GP_CANDIDATES, 4))
+    y = np.sin(3 * X[:, 0]) + X[:, 1] ** 2 - 0.5 * X[:, 2] + 0.05 * rng.standard_normal(rows)
+    times = []
+    for i in range(reps + 1):
+        t0 = time.perf_counter()
+        gp = GaussianProcess(device=device).fit(X, y)
+        order, acq = gp.acquisition_rank(Xs, "smsego", float(y.max()))  # numpy: synchronised
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        if order.shape != (BO_GP_CANDIDATES,) or not np.isfinite(acq).all():
+            raise AssertionError(f"bo: GP on {device} at {rows} rows gave a bad ranking")
+    return sorted(times)[len(times) // 2]
+
+
+def phase_bo(cx):
+    """BO on the card: Tuner(bo) -> KernelTuneEvaluator -> WallClockEvaluator ->
+    ops -> kernel for all five kernels at full width, into a fresh TuningDB,
+    every measurement recorded into a fresh transfer corpus; then one GP fit
+    + ranking timed on the CPU and on the card."""
+    import statistics
+
+    import torch
+
+    from repro_torch.benchmarks.kernel_sweep import run_sweep
+    from repro_torch.core import SearchSpace, TransferConfig
+    from repro_torch.kernels import _build
+    from repro_torch.tuning.evaluator import WallClockEvaluator
+    from repro_torch.tuning.kernel_objective import KERNELS, kernel_space
+    from repro_torch.tuning.tundb import TuningDB, hardware_fingerprint
+
+    mods = _kernel_wrappers()
+    names = list(SWEEP_SHAPES)
+    db_path = _build.build_dir() / "bo_tundb.json"
+    corpus_path = _build.build_dir() / "bo_corpus.json"
+    for p in (db_path, corpus_path):
+        p.unlink(missing_ok=True)
+    fp = hardware_fingerprint("cuda")
+    _zero_counts(mods)  # just before the main path ...
+    rows, measured = run_sweep(names, TuningDB(db_path, fingerprint=fp), **BO_ARGS,
+                               shapes=SWEEP_SHAPES, device="cuda",
+                               transfer=TransferConfig(corpus_path=str(corpus_path)),
+                               emit=lambda *a: None)
+    torch.cuda.synchronize()
+    counts = _counts(mods)  # ... and read just after
+    cx.bo_launches = counts
+    missing = [n for n in names if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"bo: no launch of {missing} during the BO sweep: {counts}")
+    records = list(json.loads(corpus_path.read_text()).values())
+    if len(records) != measured or any(r["workload"]["hardware"] != fp for r in records):
+        raise AssertionError(f"bo: the corpus holds {len(records)} rows for {measured} "
+                             "measurements, or rows without the card's fingerprint")
+    for r in rows:
+        name, shape, spec = r["kernel"], r["shape"], KERNELS[r["kernel"]]
+        if r["skipped"] or not math.isfinite(r["value"]) or r["measurements"] <= 0:
+            raise AssertionError(f"bo: {name} was not measured: {r}")
+        asks = r["ask_seconds"]
+        if len(asks) != r["n_evals"]:
+            raise AssertionError(f"bo: {name}: {len(asks)} ask times for {r['n_evals']} asks")
+        points = list(SearchSpace.from_dicts(kernel_space(name, shape)).enumerate())
+        grid = len(points)
+        feasible = sum(1 for p in points if spec.feasible(shape, p))
+        default = getattr(cx, "sweep_defaults", {}).get(name)
+        if default is None:  # the sweep phase did not run: measure it here
+            wall = WallClockEvaluator(lambda p, spec=spec, shape=shape: spec.build(shape, p, "cuda"),
+                                      warmup=1, iters=2, rel_halfwidth=0.5)
+            default = wall({})[0]
+        ga = getattr(cx, "sweep_rows", {}).get(name)
+        emit({"phase": "bo", "kernel": name, "shape": shape, "dtype": "f32",
+              "engine": "bo", "budget": min(BO_ARGS["budget"], grid), "grid": grid,
+              "grid_feasible": feasible,
+              "default_value": default, "bo_best_config": r["best"], "bo_best_value": r["value"],
+              "bo_best_step_seconds": r["step_seconds"],
+              "ga_best_value": None if ga is None else ga["value"],
+              "ga_budget": None if ga is None else min(SWEEP_ARGS["budget"], grid),
+              "exhaustive_best_value": r["value"] if r["measurements"] >= grid else None,
+              "measurements": r["measurements"], "seconds": r["seconds"],
+              "ask_seconds_median": statistics.median(asks), "ask_seconds_max": max(asks),
+              "ask_seconds_total": sum(asks), "ask_share": sum(asks) / r["seconds"],
+              "ask_seconds": asks, "launches": counts[name],
+              "value_unit": "examples/s (WallClockEvaluator, host clock, one synchronise "
+                            "per step)"})
+    gp_ms = {dev: {rows_: _gp_ask_ms(dev, rows_) for rows_ in BO_GP_ROWS}
+             for dev in ("cpu", "cuda")}
+    emit({"phase": "bo", "gpu": cx.smi, "corpus_rows": len(records), "measurements": measured,
+          "launches": counts, "gp_fit_and_rank_ms": gp_ms, "gp_candidates": BO_GP_CANDIDATES,
+          "gp_note": "median of 5 of GaussianProcess(device).fit + acquisition_rank, host clock; "
+                     "an observation, not a gate"})
+
+
+def make_service_objective():
+    """Zero-argument factory the ``service`` phase's worker resolves
+    (``--objective chip_smoke:make_service_objective()``): ssm_scan's tuning
+    objective on the card at the sweep's shape, measured as the sweep does."""
+    import torch  # noqa: F401  (loaded before the worker fingerprints its host: the card)
+
+    from repro_torch.tuning.kernel_objective import KernelTuneEvaluator
+
+    return KernelTuneEvaluator("ssm_scan", SWEEP_SHAPES["ssm_scan"], warmup=1, iters=2,
+                               rel_halfwidth=0.5, device="cuda")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nvidia_files(pid):
+    """The NVIDIA device files process ``pid`` holds open: initialising CUDA
+    opens ``/dev/nvidiactl`` and a context opens ``/dev/nvidia<N>``;
+    importing torch opens none."""
+    out = []
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except FileNotFoundError:  # closed while listed
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(set(out))
+
+
+def _feasible_space(name):
+    """``kernel_space`` of ``name`` at its sweep shape, each choice that no
+    feasible point uses left out (ssm_scan: the chunks whose staging does
+    not fit a block's shared memory on this card), so that every point of
+    the job is a measurement on the card."""
+    from repro_torch.core import SearchSpace
+    from repro_torch.tuning.kernel_objective import KERNELS, kernel_space
+
+    shape, spec = SWEEP_SHAPES[name], KERNELS[name]
+    dims = kernel_space(name, shape)
+    ok = [p for p in SearchSpace.from_dicts(dims).enumerate() if spec.feasible(shape, p)]
+    dims = [dict(d, choices=[c for c in d["choices"] if any(p[d["name"]] == c for p in ok)])
+            for d in dims]
+    if SearchSpace.from_dicts(dims).grid_size() != len(ok):
+        raise AssertionError(f"service: the feasible points of {name} are no grid")
+    return dims
+
+
+def _wait_for(procs, ready, what, timeout=120):
+    deadline = time.time() + timeout
+    while not ready():
+        for name, proc in procs.items():
+            if proc.poll() is not None:
+                raise AssertionError(f"service: the {name} exited with {proc.returncode}")
+        if time.time() > deadline:
+            raise AssertionError(f"service: the {what} was not ready after {timeout} s")
+        time.sleep(0.5)
+
+
+def phase_service(cx):
+    """The tuning service on the card: a worker process measuring ssm_scan on
+    the card and the service daemon, both started as processes of their own;
+    one BO job of SERVICE_BUDGET measurements over ssm_scan's feasible space
+    submitted through the client."""
+    from repro_torch.core import TunerConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch.service import ServiceClient
+    from repro_torch.tuning.protocol import JobSpec
+
+    state = _build.build_dir() / "service_state"
+    shutil.rmtree(state, ignore_errors=True)
+    state.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src"), HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    wport, sport = _free_port(), _free_port()
+    logs = {n: open(state / f"{n}.log", "w") for n in ("worker", "daemon")}
+    procs = {}
+    try:
+        procs["worker"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.worker", "--host", "127.0.0.1",
+             "--port", str(wport), "--slots", "1",
+             "--objective", "chip_smoke:make_service_objective()"],
+            cwd=HERE, env=env, stdout=logs["worker"], stderr=subprocess.STDOUT)
+        _wait_for(procs, lambda: "serving" in (state / "worker.log").read_text(), "worker")
+        procs["daemon"] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.service", "--serve",
+             "--state-dir", str(state / "daemon"), "--host", "127.0.0.1", "--port", str(sport),
+             "--workers", f"127.0.0.1:{wport}", "--parallelism", "1"],
+            cwd=HERE, env=env, stdout=logs["daemon"], stderr=subprocess.STDOUT)
+        clients = []
+
+        def connected():
+            try:
+                clients.append(ServiceClient(f"127.0.0.1:{sport}"))
+                return True
+            except OSError:
+                return False
+
+        _wait_for(procs, connected, "daemon")  # it reaches the worker before it listens
+        client = clients[0]
+        config = TunerConfig(algorithm="bo", budget=SERVICE_BUDGET, seed=0, verbose=False)
+        with client:
+            t0 = time.perf_counter()
+            job_id = client.submit(JobSpec(space=_feasible_space("ssm_scan"),
+                                           config=config.to_dict(), name="ssm_scan-bo"))
+            st = client.wait(job_id, timeout=600)
+            wall_s = time.perf_counter() - t0
+        nvidia = {n: _nvidia_files(p.pid) for n, p in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=15)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        for f in logs.values():
+            f.close()
+    hist = json.loads((state / "daemon" / "jobs" / job_id / "history.json").read_text())
+    if st["state"] != "done" or st["n_evals"] != SERVICE_BUDGET or len(hist) != SERVICE_BUDGET:
+        raise AssertionError(f"service: job {job_id} ended {st['state']} with "
+                             f"{st['n_evals']} results: {st.get('error')}")
+    bad = [e for e in hist if not math.isfinite(e["value"]) or e["meta"].get("kernel") != "ssm_scan"
+           or not math.isfinite(e["meta"].get("step_seconds", math.nan))]
+    if bad:
+        raise AssertionError(f"service: results that are no measurement of ssm_scan: {bad}")
+    # the worker measured on the card; the daemon never initialised CUDA
+    if not nvidia["worker"] or nvidia["daemon"]:
+        raise AssertionError(f"service: NVIDIA device files open {nvidia}: wanted some "
+                             "in the worker and none in the daemon")
+    emit({"phase": "service", "gpu": cx.smi, "job": job_id, "state": st["state"],
+          "results": len(hist), "wall_seconds": wall_s, "best": st["best"],
+          "values": [e["value"] for e in hist],
+          "step_seconds": [e["meta"]["step_seconds"] for e in hist],
+          "nvidia_files_open": nvidia})
+
+
 def kernels_line(cx):
     """The contract line: one entry per kernel, at the main path's shape and
     type.  The served kernels (bf16; the RMSNorm entry is the prefill one,
     rows = 8*512) count their launches in the ``serve`` phase; the scans
     (f32, the sweep's type and shape) in the ``sweep`` phase, which is their
-    path."""
+    path.  ``bo_launches`` counts each kernel's launches in the ``bo``
+    phase, this slice's path."""
     meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
@@ -1143,13 +1419,14 @@ def kernels_line(cx):
                     "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": by, "library_ms": row["library_ms"],
+                    "bo_launches": cx.bo_launches[name],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
 
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "parity": phase_parity, "serve": phase_serve, "tuning_db": phase_tuning_db,
-          "sweep": phase_sweep}
+          "sweep": phase_sweep, "bo": phase_bo, "service": phase_service}
 
 
 def main(argv=None):

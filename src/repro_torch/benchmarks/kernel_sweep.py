@@ -33,6 +33,7 @@ import json
 import pathlib
 import statistics
 import time
+from dataclasses import replace
 
 from repro_torch.core import Tuner, TunerConfig
 from repro_torch.core.space import SearchSpace
@@ -45,11 +46,14 @@ def run_sweep(kernels, db: TuningDB, *, budget: int = 6,
               algorithm: str = "random", parallelism: int = 1,
               multi_fidelity: bool = False, workers=None, shapes=None,
               warmup: int = 1, iters: int = 2, rel_halfwidth: float = 0.5,
-              seed: int = 0, device: str = "cuda", emit=print):
+              seed: int = 0, device: str = "cuda", transfer=None, emit=print):
     """Tune each kernel (unless the DB already holds its answer).
 
-    Returns ``(rows, measured)`` — per-kernel result rows and the total
-    number of *real* measurements performed (0 on a warm DB).
+    ``transfer`` (a ``TransferConfig``) records every measurement into
+    its corpus, under a job id of the kernel's own.  Returns ``(rows,
+    measured)`` — per-kernel result rows (with the engine's per-ask
+    seconds where it keeps them, as BO does) and the total number of
+    *real* measurements performed (0 on a warm DB).
     """
     rows, measured = [], 0
     for name in kernels:
@@ -73,7 +77,9 @@ def run_sweep(kernels, db: TuningDB, *, budget: int = 6,
                               seed=seed, verbose=False,
                               parallelism=parallelism,
                               multi_fidelity=multi_fidelity,
-                              workers=list(workers) if workers else None))
+                              workers=list(workers) if workers else None,
+                              transfer=(None if transfer is None else replace(
+                                  transfer, job_id=f"kernel_sweep:{name}:seed{seed}"))))
         t0 = time.perf_counter()
         h = t.run()
         secs = time.perf_counter() - t0
@@ -87,7 +93,8 @@ def run_sweep(kernels, db: TuningDB, *, budget: int = 6,
                      "measurements": evaluator.calls, "n_evals": len(h),
                      "best": best.point, "value": best.value,
                      "step_seconds": best.meta.get("step_seconds"),
-                     "seconds": round(secs, 3)})
+                     "seconds": round(secs, 3),
+                     "ask_seconds": list(getattr(t.engine, "ask_seconds", []))})
         emit(f"kernelsweep,{name},cold,{evaluator.calls},{best.value:.4g},"
              f"{json.dumps(best.point, sort_keys=True)}")
     return rows, measured
@@ -119,7 +126,7 @@ def main(argv=None):
     ap.add_argument("--budget", type=int, default=6,
                     help="tuning evaluations per kernel")
     ap.add_argument("--algorithm", default="random",
-                    help="ask/tell engine: ga|nms|random|exhaustive")
+                    help="ask/tell engine: bo|ga|nms|random|exhaustive")
     ap.add_argument("--parallelism", type=int, default=1)
     ap.add_argument("--multi-fidelity", action="store_true",
                     help="screen candidates on ASHA rungs (partial "

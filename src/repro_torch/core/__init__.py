@@ -13,12 +13,21 @@ disk-backed memo cache so repeated runs re-evaluate nothing.
 ``parallelism=1`` reproduces the paper's sequential
 one-point-per-iteration harness bit-for-bit.
 
-BO (the GP surrogate and its acquisition) is not ported yet:
-``ENGINES["bo"]`` raises ``NotImplementedError`` when it is constructed,
-and so does a transfer-learning configuration (ROADMAP.md, Queue A, A9)."""
+BO runs a GP surrogate in PyTorch (``repro_torch.core.gp``) on an explicit
+device, ``"cpu"`` unless the caller passes another: warm-started
+hyperparameter refits and a fused acquisition ranking, with the time of
+every suggestion kept on ``BayesOpt.ask_seconds``.
+``TunerConfig(cost_aware=True)`` switches BO to EI-per-second, trading
+improvement against a per-candidate predicted measurement cost and
+sharpening the preference for cheap probes as ``wall_clock_budget`` nears
+exhaustion.  ``TunerConfig(transfer=TransferConfig(...))`` records every
+measurement into a cross-job corpus (``repro_torch.tuning.corpus``) and
+warm-starts BO from neighbouring workloads."""
+from repro_torch.core.bayesopt import BayesOpt, TransferPrior
 from repro_torch.core.engine import Engine
 from repro_torch.core.exhaustive import Exhaustive
 from repro_torch.core.genetic import GeneticAlgorithm
+from repro_torch.core.gp import GaussianProcess
 from repro_torch.core.history import History
 from repro_torch.core.neldermead import NelderMead
 from repro_torch.core.observation import Observation
@@ -29,9 +38,9 @@ from repro_torch.core.tuner import (ENGINES, ExecutorConfig, HyperBandConfig,
                                     TransferConfig, Tuner, TunerConfig)
 
 __all__ = [
-    "CatDim", "ENGINES", "Engine", "ExecutorConfig",
-    "Exhaustive", "GeneticAlgorithm", "History",
+    "BayesOpt", "CatDim", "ENGINES", "Engine", "ExecutorConfig",
+    "Exhaustive", "GaussianProcess", "GeneticAlgorithm", "History",
     "HyperBandConfig", "IntDim", "MultiFidelityConfig", "NelderMead",
     "Observation", "PBTConfig", "RandomSearch", "SearchSpace",
-    "TransferConfig", "Tuner", "TunerConfig",
+    "TransferConfig", "TransferPrior", "Tuner", "TunerConfig",
 ]

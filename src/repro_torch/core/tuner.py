@@ -67,6 +67,9 @@ import time
 from dataclasses import asdict, dataclass, field, fields
 from typing import Callable, Dict, List, Optional, Union
 
+import numpy as np
+
+from repro_torch.core.bayesopt import BayesOpt, TransferPrior
 from repro_torch.core.engine import Engine
 from repro_torch.core.exhaustive import Exhaustive
 from repro_torch.core.genetic import GeneticAlgorithm
@@ -78,19 +81,6 @@ from repro_torch.core.space import SearchSpace
 from repro_torch.tuning.executor import EvalResult, EvaluationExecutor, PendingEval
 from repro_torch.tuning.objective import as_evaluator
 from repro_torch.tuning.remote import FleetOptions
-
-_BO_NOT_PORTED = ("{what} needs the GP surrogate of Bayesian optimisation, "
-                  "which is not ported yet (ROADMAP.md, Queue A, A9)")
-
-
-class BayesOpt(Engine):
-    """Placeholder for the BO engine: constructing it raises."""
-
-    name = "bo"
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_BO_NOT_PORTED.format(what="algorithm 'bo'"))
-
 
 ENGINES = {
     "bo": BayesOpt,
@@ -518,20 +508,52 @@ class Tuner:
                 # partial observations enter the surrogate with a fidelity
                 # feature, never as exact values
                 engine_kwargs.setdefault("fidelity_feature", True)
-        # -- transfer learning: its warm start and pre-filter rank candidates
-        # with the GP-side TransferPrior, which arrives with BO
-        if config.transfer or getattr(executor, "corpus", None) is not None:
-            raise NotImplementedError(
-                _BO_NOT_PORTED.format(what="transfer learning (TransferConfig)"))
-        self.corpus = None
+        # -- transfer learning: resolve the corpus + prior BEFORE the engine
+        # is constructed, so the warm-start prior can enter its kwargs.  No
+        # corpus configured -> corpus is None, nothing below runs, and the
+        # engine/executor construction is byte-identical to the historical
+        # path.
+        tr = config.transfer
+        corpus = (getattr(executor, "corpus", None)
+                  if executor is not None else None)
+        if corpus is None and tr:
+            from repro_torch.tuning.corpus import TuningCorpus
+            corpus = TuningCorpus(tr.corpus_path, job_id=tr.job_id)
+        self.corpus = corpus
+        self._transfer_prior: Optional[TransferPrior] = None
+        if corpus is not None:
+            corpus.describe_job(self.objective, space)
+            rows = corpus.prior_observations(
+                space, corpus.descriptor["features"],
+                k=tr.k_neighbors, max_rows=tr.max_prior,
+                max_distance=tr.max_distance)
+            if rows:
+                self._transfer_prior = TransferPrior.from_rows(space, rows)
+                if tr.warm_start and config.algorithm == "bo":
+                    engine_kwargs.setdefault("transfer_prior",
+                                             self._transfer_prior)
+                    engine_kwargs.setdefault("transfer_decay", tr.decay_evals)
+                    engine_kwargs.setdefault("transfer_guard_n",
+                                             tr.guard_evals)
         self.engine: Engine = ENGINES[config.algorithm](
             space, seed=config.seed, **engine_kwargs
         )
+        # corpus pre-filter (all prefilter_safe engines): guard state is
+        # independent of the BO-internal prior guard
+        self._prefilter_on = (bool(tr) and tr.prefilter
+                              and self._transfer_prior is not None
+                              and getattr(ENGINES[config.algorithm],
+                                          "prefilter_safe", True))
+        self._prefilter_checked = False
         if executor is not None:
             # the tuning service multiplexes many jobs over one shared
             # worker fleet: each job's Tuner gets a pre-built executor
             # (wrapping the shared pool) instead of constructing its own
             self.executor = executor
+            if corpus is not None and getattr(executor, "corpus", None) is None:
+                # service-injected executors are per-job: attach the
+                # corpus so their finalized measurements are recorded
+                executor.corpus = corpus
         else:
             backend = config.executor.backend
             if backend is None and config.executor.workers:
@@ -547,6 +569,7 @@ class Tuner:
                 timeout=config.executor.eval_timeout,
                 cache_path=config.executor.memo_cache_path,
                 workers=config.executor.workers,
+                corpus=corpus,
                 # elastic-fleet knobs only reach a pool we build ourselves;
                 # local backends never see them (byte-identical traces)
                 fleet=(config.executor.fleet_options()
@@ -607,9 +630,55 @@ class Tuner:
         self._report(r)
 
     def _ask_filtered(self, want: int, history: History) -> List[Dict]:
-        """Engine ask.  (The reference routes it through the transfer
-        corpus's pre-filter, which arrives with BO; see ``__init__``.)"""
-        return self.engine.ask(want, history)
+        """Engine ask, routed through the corpus pre-filter when active.
+
+        With transfer configured and a prior available, the engine is
+        over-asked by ``1/keep_fraction`` and only the candidates the
+        neighbor-workload observations rank highest are measured — the
+        corpus-trained pre-filter that works for *every* engine that
+        declares ``prefilter_safe`` (AutoTVM-style: spend measurements
+        only on candidates history says are promising).  Inactive (no
+        corpus, unsafe engine, prior retired or guard-tripped), this is
+        exactly ``engine.ask``.
+        """
+        tr = self.config.transfer
+        prior = self._transfer_prior
+        if (not self._prefilter_on or prior is None or want <= 0
+                or len(history) >= tr.decay_evals):
+            return self.engine.ask(want, history)
+        # negative-transfer guard, independent of BO's internal one: stop
+        # filtering permanently if the prior mis-ranks real measurements
+        if not self._prefilter_checked:
+            X, y = history.encoded()
+            finite = np.isfinite(y)
+            if int(finite.sum()) >= tr.guard_evals:
+                self._prefilter_checked = True
+                from repro_torch.tuning.corpus import prediction_agreement
+                agree = prediction_agreement(prior.predict(X[finite]),
+                                             y[finite])
+                if agree is not None and agree < 0.0:
+                    self._prefilter_on = False
+                    return self.engine.ask(want, history)
+        ask_n = max(want, math.ceil(want / max(tr.keep_fraction, 1e-9)))
+        cands = self.engine.ask(ask_n, history)
+        if len(cands) <= want:
+            return cands
+        # an engine that padded the tail of an exhausted candidate pool
+        # with unranked random fills reports the ranked head via
+        # ``last_ask_ranked`` (warm-started BO): only the head competes
+        # under the prior's score, so a random fill scored by the same
+        # prior can never displace a candidate the engine actually
+        # ranked — fills may only top up a deficit, in engine order
+        ranked_n = getattr(self.engine, "last_ask_ranked", None)
+        if ranked_n is None or not 0 <= ranked_n <= len(cands):
+            ranked_n = len(cands)
+        if ranked_n <= want:
+            return cands[:want]  # whole ranked head survives + fills
+        scores = prior.predict(self.space.encode_many(cands[:ranked_n]))
+        top = np.argsort(-scores, kind="stable")[:want]
+        # keep the engine's own proposal order among survivors (for BO
+        # that is acquisition-descending)
+        return [cands[i] for i in sorted(top.tolist())]
 
     def _wall_clock_exhausted(self, wall_clock: Optional[float]) -> None:
         if self.config.verbose:
@@ -937,7 +1006,8 @@ class Tuner:
                 self.objective, self.space,
                 parallelism=self.config.executor.parallelism,
                 backend="thread",
-                timeout=self.config.executor.eval_timeout, cache=old.cache)
+                timeout=self.config.executor.eval_timeout, cache=old.cache,
+                corpus=getattr(old, "corpus", None))
             old.close()
         if self.config.multi_fidelity:
             return self._run_multi_fidelity(budget, wall_clock)

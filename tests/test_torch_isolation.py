@@ -53,7 +53,12 @@ def test_port_has_the_expected_modules():
                  "repro_torch.core.engine", "repro_torch.core.random_search",
                  "repro_torch.core.exhaustive", "repro_torch.core.genetic",
                  "repro_torch.core.neldermead", "repro_torch.core.tuner",
-                 "repro_torch.benchmarks.kernel_sweep"):
+                 "repro_torch.benchmarks.kernel_sweep", "repro_torch.core.gp",
+                 "repro_torch.core.bayesopt", "repro_torch.tuning.corpus",
+                 "repro_torch.checkpoint.checkpointer", "repro_torch.launch.worker",
+                 "repro_torch.launch.service", "repro_torch.benchmarks.transfer_smoke",
+                 "repro_torch.benchmarks.service_smoke",
+                 "repro_torch.benchmarks.perf_iterations"):
         assert must in MODULES
 
 

@@ -4,8 +4,8 @@
 These modules are transcriptions of numpy / stdlib code, so the bar is
 exact: the port's ``Tuner`` reproduces the golden ask/tell traces bit for
 bit at ``parallelism=1``, and a port run equals a reference run record for
-record (points, values, fidelities, rungs).  BO is not ported yet: its
-engine and the transfer-learning path raise, naming ROADMAP A9.
+record (points, values, fidelities, rungs) — BO included: its GP runs in
+float32 on both sides, and these traces reproduce exactly.
 """
 import json
 import math
@@ -13,19 +13,24 @@ import pathlib
 import time
 
 import pytest
+import torch
 
 from repro.core import SearchSpace as JSearchSpace
 from repro.core import Tuner as JTuner
 from repro.core import TunerConfig as JTunerConfig
 from repro.tuning.objective import Evaluator as JEvaluator
-from repro_torch.core import ENGINES, SearchSpace, TransferConfig, Tuner, TunerConfig
+from repro_torch.core import SearchSpace, Tuner, TunerConfig
 from repro_torch.tuning.executor import EvaluationExecutor
 from repro_torch.tuning.objective import Evaluator
+
+# the test processes share the host's cores: one intra-op thread each keeps
+# the GP's many small operations from oversubscribing them
+torch.set_num_threads(1)
 
 GOLDEN = json.loads(
     (pathlib.Path(__file__).parent / "golden" / "ask_tell_traces.json").read_text())
 
-PORTED = ["ga", "nms", "random", "exhaustive"]
+PORTED = ["bo", "ga", "nms", "random", "exhaustive"]
 
 
 def golden_space(cls=SearchSpace):
@@ -98,17 +103,6 @@ def test_multi_fidelity_schedulers_equal_reference(algo, scheduler):
     ref = run(JTuner, JTunerConfig, golden_space(JSearchSpace), _fidelity_evaluator(JEvaluator))
     assert mine == ref
     assert any(f < 1.0 for _, _, f, _ in mine)  # partial rungs were used
-
-
-def test_bo_and_transfer_raise_naming_a9():
-    with pytest.raises(NotImplementedError, match="A9"):
-        ENGINES["bo"](golden_space(), seed=0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        Tuner(golden_objective, golden_space(), TunerConfig(algorithm="bo", verbose=False))
-    with pytest.raises(NotImplementedError, match="A9"):
-        Tuner(golden_objective, golden_space(),
-              TunerConfig(algorithm="ga", verbose=False,
-                          transfer=TransferConfig(corpus_path="corpus.json")))
 
 
 def test_executor_orders_results_and_memoizes():
