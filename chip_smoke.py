@@ -14,6 +14,11 @@ the tuning loop: it tunes all five kernels at full-width shapes
 (``repro_torch.benchmarks.kernel_sweep``), persists the answers in a
 ``TuningDB``, re-runs warm (nothing is measured again) and serves the model
 with the DB, checking that the served kernels ran with the swept tiles.
+The ``train`` phase trains ``qwen2-0.5b`` at its published width and
+depth through ``repro_torch.launch.train`` (K1 and K2 forward, their
+oracles backward), checks that the loss falls, that the remat modes and
+microbatching agree, and that failure + resume through the array
+checkpointer replays the loss stream.
 The ``bo`` phase runs the same loop with Bayesian optimisation, recording
 every measurement into a transfer corpus, and times one GP fit + ranking
 on the CPU and on the card; the ``service`` phase starts a measurement
@@ -142,6 +147,18 @@ BO_GP_CANDIDATES = 4096
 # the service phase: one BO job over ssm_scan's feasible space (77 points at
 # the sweep shape), through a worker process on the card
 SERVICE_BUDGET = 8
+# training: qwen2-0.5b at its published width and depth, f32, batch 8 x 512
+# tokens (the served prefill's shape, where K2's f32 times are taken), the
+# reference script's learning rate and warm-up; then each remat mode, two
+# microbatches, and failure + resume at full width and 2 layers (a
+# checkpoint of ~2 GB): a checkpoint every 2 steps and a failure at step 3,
+# restored from the checkpoint taken before step 2, which then runs again
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "512", "--lr", "1e-3"]
+TRAIN_STEPS = 12
+REMAT_STEPS = 2
+RESUME_ARGS = ["--layers", "2", "--steps", "6"]
+RESUME_FAIL_ARGS = ["--checkpoint-every", "2", "--inject-failure", "3"]
+RESUME_REPLAYED = 2  # the step run twice: before the failure and after the restore
 # served in f32, the type the sweep measured (a TuningDB key has no type)
 SWEEP_SERVE_ARGS = ["--arch", "qwen2-0.5b", "--no-reduced", "--dtype", "f32",
                     "--requests", "8", "--prompt-len", "512", "--gen-len", "64",
@@ -923,6 +940,302 @@ def phase_serve(cx):
                                 "outside the timed region"})
 
 
+def _train_run(args, mods):
+    """``launch.train.main(args)`` on the card: its log, the launches of the
+    kernels in ``mods`` during the run, its peak device memory and its
+    report line.  Fails on a loss that is not finite."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(mods)  # just before the main path ...
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        log = train.main(args)
+    counts = _counts(mods)  # ... and read just after
+    torch.cuda.synchronize()
+    losses = [m["loss"] for m in log]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {args}: losses {losses}")
+    report = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[train] done")]
+    return {"log": log, "losses": losses, "grad_norms": [m["grad_norm"] for m in log],
+            "seconds": [m["seconds"] for m in log], "launches": counts,
+            "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+            "report": report[-1] if report else None}
+
+
+def _check_same_stream(what, got, want, rtol):
+    """Losses and grad norms of two runs, step by step, within ``rtol``."""
+    for key in ("losses", "grad_norms"):
+        a, b = got[key], want[key][:len(got[key])]
+        if len(a) != len(b) or any(abs(x - y) > rtol * abs(y) for x, y in zip(a, b)):
+            raise AssertionError(f"train {what}: {key} {a} != {b} (rtol {rtol})")
+
+
+def _host_seconds(fn, reps):
+    """Seconds of one ``fn()`` on the host clock, the loop ended by a
+    synchronise; after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def _train_split(cfg, B, S, device, reps=3):
+    """Forward, backward and optimizer seconds of one train step (host
+    clock, each part ended by a synchronise; the median of ``reps`` steps
+    after a warm-up step), and the seconds of the oracle backwards that the
+    kernels' forwards pair with (``_RefVJP``: attention and RMSNorm
+    recomputed through their oracles), at the step's shapes."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels import ref
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import split_params, tree_leaves, tree_map
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.optim.optimizer import OptimizerConfig, adamw_init, adamw_update
+    from repro_torch.train.train_step import make_loss_fn
+
+    model = build_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params, _ = split_params(model.init(gen))
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+    opt = adamw_init(params, opt_cfg)
+    loss_fn = make_loss_fn(model, Runtime(compute_dtype="f32", attn_impl="cuda"))
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for i in range(reps + 1):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = loss_fn(live, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, opt, _ = adamw_update(tree_map(lambda _: next(grads), live), opt, params,
+                                      opt_cfg)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del live, loss, grads
+        if i:  # the first step is the warm-up
+            for name, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[name].append(dt)
+    del params, opt
+    split = {name: statistics.median(v) for name, v in parts.items()}
+
+    H, K, dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_model
+
+    def leaf(*shape):
+        return torch.randn(*shape, generator=gen, device=device).requires_grad_(True)
+
+    q, k, v = leaf(B, S, H, dh), leaf(B, S, K, dh), leaf(B, S, K, dh)
+    go = torch.randn(B, S, H, dh, generator=gen, device=device)
+    x, scale = leaf(B, S, D), leaf(D)
+    gx = torch.randn(B, S, D, generator=gen, device=device)
+    attn_s = _host_seconds(lambda: torch.autograd.grad(
+        ref.attention_ref(q, k, v, causal=True), (q, k, v), go), reps=5)
+    norm_s = _host_seconds(lambda: torch.autograd.grad(
+        ref.rmsnorm_ref(x, scale, cfg.norm_eps), (x, scale), gx), reps=5)
+    layers = cfg.num_layers
+    return {"seconds_median_of": reps, **{f"{k}_seconds": v for k, v in split.items()},
+            "step_seconds": sum(split.values()),
+            "oracle_attention_backward_seconds_per_call": attn_s,
+            "oracle_rmsnorm_backward_seconds_per_call": norm_s,
+            "oracle_attention_backward_seconds_per_step": attn_s * layers,
+            "oracle_rmsnorm_backward_seconds_per_step": norm_s * (2 * layers + 1),
+            "oracle_attention_share_of_backward": attn_s * layers / split["backward"],
+            "oracle_rmsnorm_share_of_backward": norm_s * (2 * layers + 1) / split["backward"]}
+
+
+@contextlib.contextmanager
+def _timed_checkpointer():
+    """Times ``Checkpointer``'s host copy (``save``), its write (``_write``,
+    on the writer thread: npz + sha256 + atomic rename) and its
+    ``restore`` (after any write in flight has finished), and the bytes of
+    each committed step."""
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+
+    rec = {"save_seconds": [], "write_seconds": [], "restore_seconds": [],
+           "bytes_written": []}
+    save, write, restore = Checkpointer.save, Checkpointer._write, Checkpointer.restore
+
+    def timed_save(self, step, tree, **kw):
+        self.wait()
+        t0 = time.perf_counter()
+        save(self, step, tree, **kw)
+        rec["save_seconds"].append(time.perf_counter() - t0)
+
+    def timed_write(self, step, flat, meta):
+        t0 = time.perf_counter()
+        write(self, step, flat, meta)
+        rec["write_seconds"].append(time.perf_counter() - t0)
+        rec["bytes_written"].append(sum(f.stat().st_size for f in self._dir(step).iterdir()))
+
+    def timed_restore(self, step, like, **kw):
+        self.wait()
+        t0 = time.perf_counter()
+        out = restore(self, step, like, **kw)
+        torch.cuda.synchronize()
+        rec["restore_seconds"].append(time.perf_counter() - t0)
+        return out
+
+    Checkpointer.save, Checkpointer._write, Checkpointer.restore = (
+        timed_save, timed_write, timed_restore)
+    try:
+        yield rec
+    finally:
+        Checkpointer.save, Checkpointer._write, Checkpointer.restore = save, write, restore
+
+
+def _train_phase(cx, cfg, base_args, device):
+    import statistics
+    import tempfile
+
+    import torch
+
+    from repro_torch.models.runtime import REMAT_MODES
+
+    # every kernel's count, zeroed before each run and read after it: the
+    # train path launches K1 and K2 and nothing else
+    mods = _kernel_wrappers()
+    layers = cfg.num_layers
+    per_step = {"rmsnorm": 2 * layers + 1, "flash_attention": layers,
+                "decode_attention": 0, "ssm_scan": 0, "gla_scan": 0}
+    B, S = (int(base_args[base_args.index(f) + 1]) for f in ("--batch", "--seq"))
+    common = {"phase": "train", "gpu": cx.smi, "model": cfg.name, "layers": layers,
+              "d_model": cfg.d_model, "vocab": cfg.padded_vocab, "dtype": "f32",
+              "batch": B, "seq": S}
+
+    def expect(run, what, steps, per):
+        want = {k: v * steps for k, v in per.items()}
+        if run["launches"] != want:
+            raise AssertionError(f"train {what}: launches {run['launches']} != {want}: the "
+                                 "train path ran past a kernel")
+
+    # 1. the main path: 12 steps through the entry point
+    main = _train_run(base_args + ["--steps", str(TRAIN_STEPS)], mods)
+    expect(main, "main", TRAIN_STEPS, per_step)
+    if not main["losses"][-1] < main["losses"][0]:
+        raise AssertionError(f"train: the loss did not fall: {main['losses']}")
+    cx.train_launches = main["launches"]
+    med = statistics.median(main["seconds"])
+    emit(dict(common, part="main", steps=TRAIN_STEPS, losses=main["losses"],
+              grad_norms=main["grad_norms"], step_seconds=main["seconds"],
+              median_step_seconds=med, tokens_per_s=B * S / med,
+              peak_memory_bytes=main["peak_memory_bytes"], launches=main["launches"],
+              launches_per_step={k: v / TRAIN_STEPS for k, v in main["launches"].items()},
+              report=main["report"]))
+
+    # 2. where a step's time goes
+    emit(dict(common, part="split", **_train_split(cfg, B, S, device)))
+
+    # 3. the remat modes, from the same params on the same batches; every
+    # mode but none runs each layer's kernels again in its recompute
+    runs = {mode: _train_run(base_args + ["--steps", str(REMAT_STEPS), "--remat", mode], mods)
+            for mode in REMAT_MODES}
+    _check_same_stream("remat none vs the main run", runs["none"], main, 1e-5)
+    for mode, run in runs.items():
+        _check_same_stream(f"remat {mode}", run, runs["none"], 1e-5)
+        again = {"rmsnorm": 2 * layers, "flash_attention": layers} if mode != "none" else {}
+        expect(run, f"remat {mode}", REMAT_STEPS,
+               {k: v + again.get(k, 0) for k, v in per_step.items()})
+    if not runs["full"]["peak_memory_bytes"] < runs["none"]["peak_memory_bytes"]:
+        raise AssertionError("train: remat full did not lower the peak memory: "
+                             f"{runs['full']['peak_memory_bytes']} vs "
+                             f"{runs['none']['peak_memory_bytes']}")
+    emit(dict(common, part="remat", steps=REMAT_STEPS, tolerance_rel=1e-5, modes={
+        mode: {"losses": r["losses"], "grad_norms": r["grad_norms"],
+               "peak_memory_bytes": r["peak_memory_bytes"], "step_seconds": r["seconds"],
+               "launches_per_step": {k: v / REMAT_STEPS for k, v in r["launches"].items()}}
+        for mode, r in runs.items()}))
+    del runs
+
+    # 4. two microbatches against one
+    mb = _train_run(base_args + ["--steps", "1", "--microbatches", "2"], mods)
+    _check_same_stream("microbatches 2 vs 1", mb, main, 1e-5)
+    expect(mb, "microbatches", 2, per_step)  # a forward a microbatch
+    emit(dict(common, part="microbatches", microbatches=2, tolerance_rel=1e-5,
+              loss=mb["losses"][0], loss_one_batch=main["losses"][0],
+              grad_norm=mb["grad_norms"][0], grad_norm_one_batch=main["grad_norms"][0],
+              peak_memory_bytes=mb["peak_memory_bytes"], step_seconds=mb["seconds"][0]))
+
+    # 5. failure and resume through the array checkpointer
+    args = base_args + RESUME_ARGS
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        plain = _train_run(args, mods)
+        with _timed_checkpointer() as ck:
+            failing = _train_run(args + ["--checkpoint-dir", tmp] + RESUME_FAIL_ARGS, mods)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the log holds the replayed step twice: its run before the failure and
+    # its run from the restored state, which must both equal the
+    # uninterrupted run's (a restore that read nothing would replay it from
+    # the state after that step, and differ)
+    steps = [m["step"] for m in failing["log"]]
+    n = RESUME_REPLAYED
+    if steps != list(range(n + 1)) + list(range(n, len(plain["log"]))):
+        raise AssertionError(f"train resume: steps {steps}")
+    fail_at = int(RESUME_FAIL_ARGS[RESUME_FAIL_ARGS.index("--inject-failure") + 1])
+    for event in (f"failure at step {fail_at}", "elastic rescale dp 2->1",
+                  f"restored step {n}"):
+        if event not in (failing["report"] or ""):
+            raise AssertionError(f"train resume: no {event!r} in {failing['report']!r}")
+    first = {k: failing[k][:n + 1] for k in ("losses", "grad_norms")}
+    again = {k: failing[k][n + 1:] for k in ("losses", "grad_norms")}
+    _check_same_stream("resume, before the failure, vs uninterrupted", first, plain, 1e-6)
+    _check_same_stream("resume, from the restore on, vs uninterrupted", again,
+                       {k: plain[k][n:] for k in again}, 1e-6)
+    _check_same_stream("resume, the replayed step vs its first run",
+                       {k: v[:1] for k, v in again.items()},
+                       {k: v[n:] for k, v in first.items()}, 1e-6)
+    if not ck["restore_seconds"] or not ck["bytes_written"]:
+        raise AssertionError(f"train resume: the checkpointer did not run: {ck}")
+    emit(dict(common, part="resume", layers=int(RESUME_ARGS[1]), tolerance_rel=1e-6,
+              replayed_step=n, steps=steps,
+              losses=failing["losses"], losses_uninterrupted=plain["losses"],
+              report=failing["report"], **ck))
+
+
+def phase_train(cx):
+    """Training through ``repro_torch.launch.train`` at qwen2-0.5b's
+    published width and depth, f32: K1 and K2 forward, their oracles
+    backward.  The loss is finite and falls, K1 and K2 launch 49 and 24
+    times a step, the remat modes and two microbatches give the same
+    stream, and failure + resume through the array checkpointer replays
+    it."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    # free the earlier phases' copy of the model: the entry point makes its own
+    cx.model = cx.params = None
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen2-0.5b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.tie_embeddings) == (24, 896, 14, 2, 4864, 151936, True)
+    _train_phase(cx, cfg, TRAIN_ARGS, torch.device("cuda"))
+
+
 def phase_tuning_db(cx):
     import torch
 
@@ -1388,7 +1701,8 @@ def kernels_line(cx):
     rows = 8*512) count their launches in the ``serve`` phase; the scans
     (f32, the sweep's type and shape) in the ``sweep`` phase, which is their
     path.  ``bo_launches`` counts each kernel's launches in the ``bo``
-    phase, this slice's path."""
+    phase; ``train_launches`` in the 12 steps of the ``train`` phase's main
+    run (K1 and K2 forward; the scans and decode are not on that path)."""
     meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
@@ -1420,12 +1734,14 @@ def kernels_line(cx):
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": by, "library_ms": row["library_ms"],
                     "bo_launches": cx.bo_launches[name],
+                    "train_launches": cx.train_launches[name],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
 
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-          "parity": phase_parity, "serve": phase_serve, "tuning_db": phase_tuning_db,
+          "parity": phase_parity, "serve": phase_serve, "train": phase_train,
+          "tuning_db": phase_tuning_db,
           "sweep": phase_sweep, "bo": phase_bo, "service": phase_service}
 
 

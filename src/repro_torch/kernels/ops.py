@@ -14,12 +14,13 @@ differentiable while the forward hot-spot runs the hand-written kernel.
 Eager PyTorch has no trace time, so ``_tuned`` is reached on every call.
 The resolved config is memoised per ``(db, kernel, dims, defaults)``: the
 steady-state cost is one dict lookup and the DB is consulted once per
-distinct call shape.  Building a step anew (``serve_step._with_db``) drops
+distinct call shape.  Building a step anew (``with_db``) drops
 the memo of its DB, so records added since are picked up then, never in
 the middle of a step's life.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import weakref
 from typing import Optional
@@ -52,6 +53,16 @@ def forget_tuned(db=None) -> None:
         _MEMO.clear()
     else:
         _MEMO.pop(db, None)
+
+
+def with_db(rt, tuning_db):
+    """Attach a TuningDB to the runtime ``rt``; ``tuning_db=None`` leaves
+    ``rt`` untouched.  Building a step is the moment the DB is (re)read:
+    what this layer memoised from this DB before is dropped here."""
+    if tuning_db is None:
+        return rt
+    forget_tuned(tuning_db)
+    return dataclasses.replace(rt, tuning_db=tuning_db)
 
 
 def _tuned(db, kernel: str, dims: dict, defaults: dict) -> dict:

@@ -6,16 +6,27 @@ Layer stacks follow the *repeating period* of the layer plan
 along a leading ``layers`` dim, as in the reference package, and walked
 with a python loop (eager PyTorch has no scan to compile).
 
+Training (``mode="full"`` with grad enabled) wraps each period in
+``torch.utils.checkpoint`` as ``rt.remat`` asks, as the reference wraps its
+scanned period function in ``jax.checkpoint``: ``none`` saves everything,
+``full`` recomputes the whole period, ``dots`` saves the outputs of the
+matrix products (``aten.mm`` / ``bmm`` / ``addmm``) and recomputes the rest,
+``names`` saves only ``mixer_out`` and ``mlp_out``, the two points that
+``checkpoint_name`` marks.  The kernels' forwards run inside the period
+and so run again in its recompute.
+
 Three entry points: ``forward`` (full / prefill), ``decode_step`` and
 ``init_cache``.  The cache is updated in place and handed back;
 ``cache["pos"]`` is a host integer.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -26,6 +37,40 @@ from repro_torch.models.layers import shard_hint
 MIXER_INIT = {
     "attn": L.init_attention,
 }
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Identity that the dispatcher sees, so that a selective-checkpoint
+    policy can save its output (``jax.ad_checkpoint.checkpoint_name``).  A
+    custom op may not return its input, hence the copy."""
+    return x.clone()
+
+
+_checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+
+def checkpoint_name(x: torch.Tensor, name: str, mark: bool) -> torch.Tensor:
+    """Mark ``x`` as the residual ``name`` where ``mark`` is set (the period
+    runs under the ``names`` policy, the only one that looks for the mark);
+    else ``x`` itself, with no copy."""
+    return _checkpoint_name(x, name) if mark else x
+
+
+#: what each selective remat mode saves (everything else is recomputed)
+_SAVED_OPS = {
+    "dots": [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default],
+    "names": [torch.ops.repro_torch.checkpoint_name.default],
+}
+
+
+def _remat(fn, mode: str, *args):
+    """``fn(*args)`` under the remat policy ``mode`` (not ``none``)."""
+    if mode == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    ctx = functools.partial(create_selective_checkpoint_contexts, _SAVED_OPS[mode])
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
 
 
 def _not_ported(what: str, kind: str):
@@ -80,9 +125,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _block_apply(
     block, x, *, cfg: ModelConfig, rt: Runtime, mixer_kind: str, mlp_kind: str,
-    mode: str, cache: Optional[dict], pos: Optional[int],
+    mode: str, cache: Optional[dict], pos: Optional[int], mark: bool = False,
 ) -> Tuple[torch.Tensor, float, Optional[dict]]:
-    """Pre-norm residual block.  Returns (x, aux_loss, new_cache)."""
+    """Pre-norm residual block.  Returns (x, aux_loss, new_cache).  ``mark``
+    marks ``mixer_out`` and ``mlp_out`` for the ``names`` remat policy."""
     use_rope = cfg.attn_period == 0  # hybrids carry no explicit PE
     h = L.rmsnorm(block["norm1"], x, cfg.norm_eps, rt)
     mixer_cache = cache.get("mixer") if cache else None
@@ -94,7 +140,7 @@ def _block_apply(
         raise _not_ported("mixer", mixer_kind)
     else:
         raise ValueError(mixer_kind)
-    x = x + h
+    x = x + checkpoint_name(h, "mixer_out", mark)
     if mc is not None:
         new_cache["mixer"] = mc
 
@@ -104,7 +150,7 @@ def _block_apply(
     if mlp_kind == "moe":
         raise _not_ported("mlp", mlp_kind)
     h = L.mlp_apply(block["mlp"], h, cfg=cfg, rt=rt)
-    x = x + h
+    x = x + checkpoint_name(h, "mlp_out", mark)
     return x, 0.0, (new_cache or None)
 
 
@@ -127,24 +173,38 @@ def _head(params, x, cfg, rt):
 
 def _walk_periods(params, cache_layers, x, *, cfg, rt, mode, pos):
     """Apply every layer in order: period by period, position by position.
-    ``a[i]`` of a stacked leaf is a view, so the cache slices handed to the
+    A stacked param leaf is unbound once (its gradient is then one stack of
+    the layers' gradients, not one full-size scatter a layer); ``a[i]`` of
+    a stacked cache leaf is a view, so the cache slices handed to the
     blocks alias the stacked cache and are updated in place."""
     plan = cfg.layer_plan()
     period = cfg.layer_period()
     n_periods = cfg.num_layers // period
-    aux = 0.0
-    for i in range(n_periods):
+    layers = {key: tree_map(lambda a: a.unbind(0), blocks)
+              for key, blocks in params["blocks"].items()}
+    # training only: serving runs under no_grad and ignores remat
+    remat = rt.remat != "none" and mode == "full" and torch.is_grad_enabled()
+    mark = remat and rt.remat == "names"
+
+    def period_fn(x, i):
+        aux = 0.0
         for pos_i in range(period):
             mixer_kind, mlp_kind = plan[pos_i]
             key = f"pos{pos_i}"
-            block = tree_map(lambda a: a[i], params["blocks"][key])
+            block = tree_map(lambda a: a[i], layers[key])
             c = (tree_map(lambda a: a[i], cache_layers[key])
                  if cache_layers else None)
             x, aux_i, _ = _block_apply(
                 block, x, cfg=cfg, rt=rt, mixer_kind=mixer_kind,
-                mlp_kind=mlp_kind, mode=mode, cache=c, pos=pos,
+                mlp_kind=mlp_kind, mode=mode, cache=c, pos=pos, mark=mark,
             )
             aux = aux + aux_i
+        return x, aux
+
+    aux = 0.0
+    for i in range(n_periods):
+        x, aux_i = _remat(period_fn, rt.remat, x, i) if remat else period_fn(x, i)
+        aux = aux + aux_i
     return x, aux
 
 

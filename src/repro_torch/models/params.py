@@ -36,6 +36,13 @@ def tree_map(fn, tree, *rest, is_leaf=None):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, in the order ``tree_map`` visits them."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 def split_params(tree):
     values = tree_map(lambda p: p.value, tree, is_leaf=is_p)
     axes = tree_map(lambda p: p.axes, tree, is_leaf=is_p)

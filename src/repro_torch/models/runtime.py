@@ -25,8 +25,8 @@ _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 #: The one validated remat vocabulary.  The tuner's search space and
 #: ``Runtime`` (the executing backend) must accept exactly the same
-#: choices.  Serving ignores the mode; the training path will map each one
-#: onto ``torch.utils.checkpoint``.
+#: choices.  Serving ignores the mode; training maps each one onto
+#: ``torch.utils.checkpoint`` (models/lm.py).
 REMAT_MODES = ("none", "dots", "names", "full")
 
 #: ``attn_impl`` vocabulary: the oracle, the chunked oracle, and the

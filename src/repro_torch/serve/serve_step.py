@@ -3,28 +3,17 @@
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels.ops import with_db
 from repro_torch.models.model import Model
 from repro_torch.models.runtime import Runtime
 
 
-def _with_db(rt: Runtime, tuning_db) -> Runtime:
-    """Attach a TuningDB to the runtime; ``tuning_db=None`` leaves ``rt``
-    untouched.  Building a step is the moment the DB is (re)read: what the
-    ops layer memoised from this DB before is dropped here."""
-    if tuning_db is None:
-        return rt
-    ops.forget_tuned(tuning_db)
-    return dataclasses.replace(rt, tuning_db=tuning_db)
-
-
 def make_prefill_step(model: Model, rt: Runtime, *, tuning_db=None):
-    rt = _with_db(rt, tuning_db)
+    rt = with_db(rt, tuning_db)
 
     @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor], cache):
@@ -37,7 +26,7 @@ def make_prefill_step(model: Model, rt: Runtime, *, tuning_db=None):
 
 
 def make_decode_step(model: Model, rt: Runtime, *, tuning_db=None):
-    rt = _with_db(rt, tuning_db)
+    rt = with_db(rt, tuning_db)
 
     @torch.no_grad()
     def decode_step(params, tokens: torch.Tensor, cache):

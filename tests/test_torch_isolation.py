@@ -58,7 +58,10 @@ def test_port_has_the_expected_modules():
                  "repro_torch.checkpoint.checkpointer", "repro_torch.launch.worker",
                  "repro_torch.launch.service", "repro_torch.benchmarks.transfer_smoke",
                  "repro_torch.benchmarks.service_smoke",
-                 "repro_torch.benchmarks.perf_iterations"):
+                 "repro_torch.benchmarks.perf_iterations",
+                 "repro_torch.optim.optimizer", "repro_torch.data.pipeline",
+                 "repro_torch.runtime.fault_tolerance", "repro_torch.train.train_step",
+                 "repro_torch.train.trainer", "repro_torch.launch.train"):
         assert must in MODULES
 
 
