@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # all phases, needs one card
     python3 chip_smoke.py --phases env,build,kernels
     python3 chip_smoke.py --phases env,build,bo,service
+    python3 chip_smoke.py --phases env,build,families
 
 Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
@@ -23,7 +24,11 @@ The ``bo`` phase runs the same loop with Bayesian optimisation, recording
 every measurement into a transfer corpus, and times one GP fit + ranking
 on the CPU and on the card; the ``service`` phase starts a measurement
 worker on the card and the tuning service as processes of their own and
-runs one BO job through them.  Each phase prints JSON lines; any failure
+runs one BO job through them.  The ``families`` phase runs the other
+model families at full width (rwkv6-3b, one period of Jamba v0.1,
+minicpm3-4b, whisper-base) through the kernels, K4 and K5 included,
+against the oracle path on the same weights, and serves three of them
+through ``repro_torch.launch.serve``.  Each phase prints JSON lines; any failure
 ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -471,8 +476,13 @@ def phase_kernels(cx):
     # -- rmsnorm ----------------------------------------------------------------
     for name, dt in dtypes.items():
         tol = TOL["rmsnorm"][name]
+        # ragged tiles, one row a program, rows wider than a chunk (walked in
+        # chunks of MAX_CHUNK), every width the families run, a persistent
+        # grid (more tiles than one wave)
         for shape, br in (((5, 33, 64), 16), ((5, 33, 64), 256), ((7, 100), 1),
-                          ((3, 896), 8), ((2, 5, 2560), 4)):
+                          ((3, 896), 8), ((2, 5, 2560), 4), ((3, 9000), 256),
+                          ((9, 768), 256), ((4100, 256), 256), ((65537, 64), 4096),
+                          ((3000, 4096), 2)):
             x = rand(*shape, dtype=dt)
             s = rand(shape[-1], dtype=torch.float32)
             got = rms.rmsnorm(x, s, 1e-5, block_rows=br)
@@ -585,32 +595,45 @@ def phase_kernels(cx):
         del sets
     at_main["decode_attention"] = rows
 
-    # rmsnorm: prefill rows 8*512 and decode rows 8
+    # rmsnorm: prefill rows 8*512 and decode rows 8 at qwen2-0.5b's width; the
+    # families' widths at 4096 rows (MLA's kv and q latents 256 and 768,
+    # rwkv6-3b / minicpm3-4b 2560, jamba 4096); at the served shape every
+    # block_rows of the tuner's space
+    from repro_torch.tuning.kernel_objective import kernel_space
+
     rows = []
     for name, dt in dtypes.items():
         esz = 4 if name == "f32" else 2
-        for R in (4096, 8):
-            nbytes = 2 * R * D * esz + D * 4
-            s = rand(D, dtype=torch.float32)
-            sets = [(rand(R, D, dtype=dt), s) for _ in range(n_sets_for(nbytes))]
+        for R, Dn in ((4096, D), (8, D), (4096, 256), (4096, 768), (4096, 2560), (4096, 4096)):
+            nbytes = 2 * R * Dn * esz + Dn * 4
+            s = rand(Dn, dtype=torch.float32)
+            sets = [(rand(R, Dn, dtype=dt), s) for _ in range(n_sets_for(nbytes))]
             x = sets[0][0]
             got = rms.rmsnorm(x, s, 1e-6)
-            cfg = dict(rms.rmsnorm.last_config)
+            cfg, geo = dict(rms.rmsnorm.last_config), dict(rms.rmsnorm.last_geometry)
             want = rms.rmsnorm_plain(x, s, 1e-6)
-            e = check_close("rmsnorm", f"{name} rows={R}", got, want, TOL["rmsnorm"][name])
+            e = check_close("rmsnorm", f"{name} rows={R} D={Dn}", got, want, TOL["rmsnorm"][name])
             ms, eager_ms = time_ms(lambda x, s: rms.rmsnorm(x, s, 1e-6), sets)
-            ms8, _ = time_ms(lambda x, s: rms.rmsnorm(x, s, 1e-6, block_rows=8), sets)
             plain_ms, _ = time_ms(lambda x, s: rms.rmsnorm_plain(x, s, 1e-6), sets)
             s_dt = s.to(dt)
-            lib_ms, _ = time_ms(lambda x, s: F.rms_norm(x, (D,), s_dt, 1e-6), sets)
-            flops = R * D * 4
+            lib_ms, _ = time_ms(lambda x, s: F.rms_norm(x, (Dn,), s_dt, 1e-6), sets)
+            flops = R * Dn * 4
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["f32"] * 1e3
-            rows.append({"dtype": name, "shape": f"rows={R} D={D}", "config": cfg,
-                         "max_abs_err": e, "ms": ms, "eager_ms": eager_ms,
-                         "ms_block_rows8": ms8,
-                         "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            row = {"dtype": name, "shape": f"rows={R} D={Dn}", "config": cfg, "geometry": geo,
+                   "max_abs_err": e, "ms": ms, "eager_ms": eager_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "share_of_bound": max(t_bytes, t_ops) / ms, "vs_library": ms / lib_ms}
+            if (R, Dn) == (4096, D):
+                (space,) = kernel_space("rmsnorm", {"rows": R, "D": Dn})
+                by_br = {}
+                for br in space["choices"]:
+                    by_br[br], _ = time_ms(lambda x, s: rms.rmsnorm(x, s, 1e-6, block_rows=br),
+                                           sets)
+                row["block_rows_ms"] = by_br
+                row["block_rows_slowest_over_fastest"] = max(by_br.values()) / min(by_br.values())
+            rows.append(row)
             del sets
     at_main["rmsnorm"] = rows
 
@@ -624,6 +647,30 @@ def phase_kernels(cx):
                     "of >= 20 calls (device time); eager_ms: the same calls run eagerly "
                     "(host launch cost included); inputs rotated through buffers larger than "
                     "the L2 cache"})
+
+
+def _ssm_f64(x, dt, A, B_in, C_in, D_skip):
+    """The selective scan's recurrence in float64, step by step: at S=8192 a
+    channel whose decay is within ~1e-4 of 1 sums thousands of steps, so the
+    ssm rows report how far the kernel and the plain version each lie from
+    the exact answer (``_f64_distances``), beside the check against the
+    plain version."""
+    import torch
+
+    xd, dtd, Ad, Bd, Cd = (t.double() for t in (x, dt, A, B_in, C_in))
+    h = torch.zeros((x.shape[0], x.shape[2], A.shape[1]), dtype=torch.float64, device=x.device)
+    y = torch.empty(x.shape, dtype=torch.float64, device=x.device)
+    for t in range(x.shape[1]):
+        h = torch.exp(dtd[:, t, :, None] * Ad) * h + (dtd[:, t] * xd[:, t])[..., None] * Bd[:, t, None]
+        y[:, t] = (h * Cd[:, t, None]).sum(-1)
+    return y + xd * D_skip.double()
+
+
+def _f64_distances(got, plain, exact):
+    """The largest distances of the kernel and of the plain version from the
+    float64 answer (reported, not checked)."""
+    return {"kernel_vs_f64": float((got.double() - exact).abs().max()),
+            "plain_vs_f64": float((plain.double() - exact).abs().max())}
 
 
 def _scan_kernels(rand, dtypes, checked, worst, at_main):
@@ -707,12 +754,15 @@ def _scan_kernels(rand, dtypes, checked, worst, at_main):
                 raise AssertionError(f"{kname}: the cases missed a {key} split: "
                                      f"{sorted(seen[kname][key])} lack {sorted(want)}")
 
-    def at_shape(kname, shape_s, fn, plain, sets, nbytes, flops, name, exps=0):
-        """Error, time, plain time and bound at one shape."""
+    def at_shape(kname, shape_s, fn, plain, sets, nbytes, flops, name, exps=0, exact=None):
+        """Error, time, plain time and bound at one shape.  With ``exact`` (a
+        float64 evaluation of the same function), the row also reports both
+        versions' distances from it (``_f64_distances``)."""
         got = fn(*sets[0])
         cfg, sp = dict(fn.last_config), dict(fn.last_split)
         want = plain(*sets[0])
         e = check_close(kname, f"{name} {shape_s}", got, want, TOL[kname][name])
+        anchored = {} if exact is None else _f64_distances(got, want, exact(*sets[0]))
         del got, want
         ms, eager_ms = time_ms(fn, sets)
         # the plain version is a loop of ~10 small launches per step: one call
@@ -728,7 +778,7 @@ def _scan_kernels(rand, dtypes, checked, worst, at_main):
                 "plain_ms": plain_ms, "library_ms": None, "bound_ms": terms[by],
                 "bytes_ms": terms["bytes"], "operations_ms": terms["operations"],
                 "sfu_ms": terms.get("exponentials"), "bound_by": by,
-                "share_of_bound": terms[by] / ms}
+                "share_of_bound": terms[by] / ms, **anchored}
 
     # ssm: the sweep's builder distributions; fp32 arithmetic whatever the
     # input type; the sweep's shape, then one long sequence
@@ -745,7 +795,8 @@ def _scan_kernels(rand, dtypes, checked, worst, at_main):
                  rand(B, S, N, dtype=dt), torch.ones(D, device="cuda"))
                 for _ in range(n_sets_for(nbytes))]
         rows.append(at_shape("ssm_scan", f"B={B} S={S} D={D} N={N}", ssm.ssm_scan,
-                             ssm.ssm_scan_plain, sets, nbytes, flops, name, exps=B * S * D * N))
+                             ssm.ssm_scan_plain, sets, nbytes, flops, name, exps=B * S * D * N,
+                             exact=_ssm_f64 if (S > s["S"] and name == "f32") else None))
         del sets
     at_main["ssm_scan"] = rows
 
@@ -1695,6 +1746,459 @@ def phase_service(cx):
           "nvidia_files_open": nvidia})
 
 
+
+# ---------------------------------------------------------------------------
+# the remaining model families at full width (rwkv6-3b, one period of Jamba,
+# minicpm3-4b, whisper-base)
+# ---------------------------------------------------------------------------
+
+FAMILY_B, FAMILY_S = 2, 2048  # scored forwards: K4's and K5's sweep shapes
+FAMILY_DECODE = 4             # decode steps after a prefill held against the oracle path
+FAMILY_SERVE = {
+    "rwkv6-3b": ["--arch", "rwkv6-3b", "--no-reduced", "--dtype", "bf16", "--requests", "8",
+                 "--prompt-len", "128", "--gen-len", "32", "--batch", "8"],
+    "minicpm3-4b": ["--arch", "minicpm3-4b", "--no-reduced", "--dtype", "bf16",
+                    "--requests", "8", "--prompt-len", "128", "--gen-len", "16", "--batch", "8"],
+    "whisper-base": ["--arch", "whisper-base", "--no-reduced", "--dtype", "bf16",
+                     "--requests", "8", "--prompt-len", "32", "--gen-len", "32", "--batch", "8"],
+}
+# f32, the kernel path against the oracle path on the same weights: every
+# op rounds at ~6e-8 relative, in other orders on the two paths (the
+# scans' sequential kernels against their chunked oracles, the norms' one
+# pass against three); over 32 layers, 1e-3 of the largest logit.  (In
+# bf16 both paths of rwkv6-3b and Jamba land far from the f32 run on these
+# random weights, most of the largest logit: RWKV's decays exp(-exp(w))
+# within 0.0025 of 1 round to 0.996 or 1 in bf16.  So bf16 holds the kernel
+# path to the oracle path's own distance from f32, as the parity phase
+# does.)
+FAMILY_F32_RTOL = 1e-3
+
+
+def _ulp(x):
+    """One bf16 ulp at |x|."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+class _KernelClock:
+    """CUDA events around every launch of the five kernels while active:
+    the dispatch layer (``kernels/ops.py``) reaches each kernel through its
+    module, so standing in for the module there reaches every call site.
+    ``ms(counts)`` is each kernel's device time since the last ``reset()``,
+    held to the launch counters, which count as before."""
+
+    MODS = {"rmsnorm": "_rms_mod", "flash_attention": "_flash_mod",
+            "decode_attention": "_decode_mod", "ssm_scan": "_ssm_mod", "gla_scan": "_gla_mod"}
+
+    class _Timed:
+        def __init__(self, mod, name, events):
+            self._mod, self._name, self._events = mod, name, events
+
+        def __getattr__(self, attr):
+            fn = getattr(self._mod, attr)
+            if attr != self._name:
+                return fn
+
+            def timed(*a, **kw):
+                import torch
+
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                self._events[self._name].append((e0, e1))
+                return out
+            return timed
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops = ops
+        self.reset()
+        self.orig = {attr: getattr(ops, attr) for attr in self.MODS.values()}
+        for name, attr in self.MODS.items():
+            setattr(ops, attr, self._Timed(self.orig[attr], name, self.events))
+        return self
+
+    def __exit__(self, *exc):
+        for attr, mod in self.orig.items():
+            setattr(self.ops, attr, mod)
+
+    def reset(self):
+        self.events = getattr(self, "events", {})
+        self.events.clear()
+        self.events.update({n: [] for n in self.MODS})
+
+    def ms(self, counts):
+        """Each kernel's device time since ``reset()``.  ``counts`` are the
+        launch counters over the same span: every launch must have been
+        timed (a count without its events means the path reached a kernel
+        past the clock, and its time would read 0)."""
+        import torch
+
+        torch.cuda.synchronize()
+        for n, ev in self.events.items():
+            if len(ev) != counts.get(n, 0):
+                raise AssertionError(f"kernel clock: {n} launched {counts.get(n, 0)} times, "
+                                     f"{len(ev)} calls timed")
+        return {n: sum(a.elapsed_time(b) for a, b in ev) for n, ev in self.events.items()}
+
+
+def _family_init(cfg, dtype):
+    """Random weights from seed 0 on the card, each block cast to ``dtype``
+    as soon as it is drawn (a period of Jamba is 53 GB in f32)."""
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import split_params
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params, _ = split_params(model.init(gen, dtype=dtype))
+    torch.cuda.synchronize()
+    return model, params
+
+
+def _family_forward(model, params, batch, rt, mods, clock):
+    """One ``mode="full"`` forward under no_grad, after one of warm-up (the
+    first call of a kernel at new argument types compiles it): its logits
+    (f32), the launches of every kernel (counters zeroed just before, read
+    just after), each kernel's device time in it, its seconds (host clock
+    between two synchronises), the same on the device's clock (events)
+    and the peak bytes."""
+    import torch
+
+    with torch.no_grad():
+        model.apply(params, batch, rt=rt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock.reset()
+    _zero_counts(mods)  # just before the path ...
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    with torch.no_grad():
+        logits, aux, _ = model.apply(params, batch, rt=rt)
+    e1.record()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts(mods)  # ... and read just after
+    out = logits.float()
+    del logits
+    return out, {"seconds": secs, "device_ms": e0.elapsed_time(e1), "launches": counts,
+                 "kernel_ms": clock.ms(counts), "aux": float(aux),
+                 "peak_memory_bytes": int(torch.cuda.max_memory_allocated())}
+
+
+def _family_serve_steps(model, params, batch, rt, mods, steps, forced=None):
+    """Prefill + ``steps`` decode steps through ``serve/serve_step.py``:
+    the logits of every step (f32), the greedy tokens, and the launches.
+    ``forced`` feeds these tokens instead of the greedy ones (so two paths
+    see the same inputs)."""
+    import torch
+
+    from repro_torch.models.params import split_params
+    from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+
+    B, S = batch["tokens"].shape
+    cache, _ = split_params(model.init_cache(B, S + steps + 1, device=batch["tokens"].device))
+    _zero_counts(mods)
+    logits, cache = make_prefill_step(model, rt)(params, batch, cache)
+    prefill_counts = _counts(mods)
+    decode = make_decode_step(model, rt)
+    outs, toks = [logits.float()], [greedy_sample(logits)]
+    _zero_counts(mods)
+    for t in range(steps):
+        logits, cache = decode(params, toks[-1] if forced is None else forced[t], cache)
+        outs.append(logits.float())
+        toks.append(greedy_sample(logits))
+    torch.cuda.synchronize()
+    return torch.cat(outs, dim=1), toks, {"prefill": prefill_counts, "decode": _counts(mods)}
+
+
+def _family_serve_f32(what, model, params, batch, rt, mods, tokens, counts, total):
+    """The kernel path's prefill + decode again in f32 on the same weights
+    and tokens: its logits, for the f32 comparison.  It must launch what the
+    bf16 run launched (``counts``); both runs' launches go into ``total``."""
+    k32, _, c32 = _family_serve_steps(model, params, batch, rt, mods, FAMILY_DECODE,
+                                      forced=tokens)
+    _family_expect(f"{what} f32 prefill+decode", c32, counts)
+    for c in (counts, c32):
+        _add_counts(total, c["prefill"])
+        _add_counts(total, c["decode"])
+    return k32
+
+
+def _family_compare(what, k16, o16, o32, k32=None):
+    """The kernel path against the oracle path (parity-phase style).  bf16:
+    the kernel path no farther from the f32 oracle run than the bf16
+    oracle path is (factor 1.25, plus 2 bf16 ulps of the largest logit for
+    ties in rounding).  f32 (where run): the two paths within
+    FAMILY_F32_RTOL of the largest logit."""
+    import torch
+
+    for name, t in (("kernels bf16", k16), ("oracle bf16", o16), ("oracle f32", o32)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"families {what}: {name} logits are not finite")
+    absmax = float(o32.abs().max())
+    e_k, e_o = float((k16 - o32).abs().max()), float((o16 - o32).abs().max())
+    out = {"logit_absmax": absmax, "bf16_ulp_at_absmax": _ulp(absmax),
+           "kernels_vs_oracle_bf16": float((k16 - o16).abs().max()),
+           "kernels_bf16_vs_oracle_f32": e_k, "oracle_bf16_vs_oracle_f32": e_o,
+           "tolerance_bf16": 1.25 * e_o + 2 * _ulp(absmax)}
+    if e_k > out["tolerance_bf16"]:
+        raise AssertionError(f"families {what}: the bf16 kernel path is farther from the f32 "
+                             f"oracle run ({e_k:.3e}) than 1.25x the oracle path's ({e_o:.3e})")
+    if k32 is not None:
+        e32 = float((k32 - o32).abs().max())
+        out.update(kernels_vs_oracle_f32=e32, tolerance_f32=FAMILY_F32_RTOL * absmax)
+        if e32 > FAMILY_F32_RTOL * absmax:
+            raise AssertionError(f"families {what}: f32 kernel vs oracle path {e32:.3e} > "
+                                 f"{FAMILY_F32_RTOL} x |logit| {absmax:.3e}")
+    return out
+
+
+def _family_expect(what, got, want):
+    if got != want:
+        raise AssertionError(f"families {what}: launches {got} != expected {want}: the path "
+                             "ran past a kernel, or a kernel it should not")
+
+
+def _family_route(what, got, want):
+    if got != want:
+        raise AssertionError(f"families {what}: attention ran on {got}, not {want}")
+
+
+def _family_served(arch, mods, expect):
+    """``launch.serve.main`` at full width: its report, launches (zeroed
+    just before, read just after) and peak bytes."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(mods)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        done = serve.main(FAMILY_SERVE[arch])
+    counts = _counts(mods)
+    torch.cuda.synchronize()
+    args = FAMILY_SERVE[arch]
+    requests, gen_len = int(args[args.index("--requests") + 1]), int(args[args.index("--gen-len") + 1])
+    if sorted(r for r, _ in done) != list(range(requests)) or any(
+            t.shape != (gen_len,) for _, t in done):
+        raise AssertionError(f"families {arch} serve: not every request was answered")
+    _family_expect(f"{arch} serve", counts, expect)
+    return dict(_serve_report(buf), args=args, launches=counts,
+                peak_memory_bytes=int(torch.cuda.max_memory_allocated()))
+
+
+def _add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_families(cx):
+    """The remaining model families on the card, at full width, through the
+    kernels (``scan_impl="cuda"`` puts K4 and K5 on their models' paths)
+    and against the oracle path on the same weights and tokens:
+    rwkv6-3b (32 layers: K5 x 32 and K1 x 65 a forward, f32 and bf16, then
+    served), one period of Jamba v0.1 (8 layers, depth cut from 32: K4 x 7,
+    K2 x 1 and the MoE at the config's capacity in a forward, then prefill
+    + decode through serve_step), minicpm3-4b (62 layers, MLA: K2 at dh 96
+    / dv 64) and whisper-base (encoder-decoder: K2 and K3 on self- and
+    cross-attention), each served through ``launch/serve.py``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.runtime import Runtime
+
+    cx.model = cx.params = None
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mods = _kernel_wrappers()
+    zero = {k: 0 for k in mods}
+    total = dict(zero)
+    rng = np.random.default_rng(0)
+    rt_k = {d: Runtime(compute_dtype=d, attn_impl="cuda", scan_impl="cuda") for d in ("bf16", "f32")}
+    rt_o = {d: Runtime(compute_dtype=d, attn_impl="ref", scan_impl="chunked") for d in ("bf16", "f32")}
+    report = {}
+
+    with _KernelClock() as clock:
+        # -- rwkv6-3b: full width and depth ------------------------------------
+        t0 = time.perf_counter()
+        cfg = get_config("rwkv6-3b")
+        assert (cfg.num_layers, cfg.d_model, cfg.d_model // cfg.rwkv.head_size) == (32, 2560, 40)
+        L = cfg.num_layers
+        model, p16 = _family_init(cfg, torch.bfloat16)
+        p32 = tree_map(lambda a: a.float(), p16)  # the same (bf16-rounded) weights in f32
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FAMILY_B, FAMILY_S))
+                                  .astype(np.int32)).cuda()
+        batch = {"tokens": tokens}
+        want = dict(zero, rmsnorm=2 * L + 1, gla_scan=L)
+        runs = {}
+        for label, params, rt in (("kernels_f32", p32, rt_k["f32"]), ("oracle_f32", p32, rt_o["f32"]),
+                                  ("kernels_bf16", p16, rt_k["bf16"]),
+                                  ("oracle_bf16", p16, rt_o["bf16"])):
+            logits, info = _family_forward(model, params, batch, rt, mods, clock)
+            if label.startswith("kernels"):
+                _family_expect(f"rwkv6-3b {label}", info["launches"], want)
+                _add_counts(total, info["launches"])
+            runs[label] = (logits, info)
+        cmp = _family_compare("rwkv6-3b", runs["kernels_bf16"][0], runs["oracle_bf16"][0],
+                              runs["oracle_f32"][0], k32=runs["kernels_f32"][0])
+        infos = {k: v[1] for k, v in runs.items()}
+        del runs, p32, p16, model
+        torch.cuda.empty_cache()
+        served = _family_served("rwkv6-3b", mods, dict(
+            zero, rmsnorm=(2 * L + 1) * 32))  # prefill: the chunked oracle (it returns the state)
+        _add_counts(total, served["launches"])
+        report["rwkv6-3b"] = {"layers": L, "d_model": cfg.d_model, "B": FAMILY_B, "S": FAMILY_S,
+                              "params": cfg.param_counts()["total"], "forward": infos,
+                              "compare": cmp, "serve": served,
+                              "seconds": time.perf_counter() - t0}
+        emit({"phase": "families", "model": "rwkv6-3b", **report["rwkv6-3b"]})
+
+        # -- jamba-v0.1-52b: full width, depth cut to one period ------------------
+        t0 = time.perf_counter()
+        full = get_config("jamba-v0.1-52b")
+        cfg = dataclasses.replace(full, num_layers=full.layer_period())
+        plan = cfg.layer_plan()
+        assert (cfg.num_layers, cfg.d_model, cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state,
+                cfg.moe.num_experts, cfg.moe.d_expert) == (8, 4096, 8192, 16, 16, 14336)
+        n_mamba = sum(m == "mamba" for m, _ in plan)
+        n_attn = sum(m == "attn" for m, _ in plan)
+        model, p16 = _family_init(cfg, torch.bfloat16)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FAMILY_B, FAMILY_S))
+                                  .astype(np.int32)).cuda()
+        batch = {"tokens": tokens}
+        want = dict(zero, rmsnorm=2 * cfg.num_layers + 1, ssm_scan=n_mamba,
+                    flash_attention=n_attn)
+        runs = {}
+        # the f32 runs compute in f32 on the bf16 weights (cast at use: an f32
+        # copy of the period would not fit beside them)
+        for label, rt in (("kernels_bf16", rt_k["bf16"]), ("oracle_bf16", rt_o["bf16"]),
+                          ("kernels_f32", rt_k["f32"]), ("oracle_f32", rt_o["f32"])):
+            logits, info = _family_forward(model, p16, batch, rt, mods, clock)
+            if label.startswith("kernels"):
+                _family_expect(f"jamba {label}", info["launches"], want)
+                _add_counts(total, info["launches"])
+            if label == "kernels_bf16":
+                flash_kernel = fla.flash_attention.last_kernel
+            runs[label] = (logits, info)
+        cmp = _family_compare("jamba", runs["kernels_bf16"][0], runs["oracle_bf16"][0],
+                              runs["oracle_f32"][0], k32=runs["kernels_f32"][0])
+        infos = {k: v[1] for k, v in runs.items()}
+        del runs
+        torch.cuda.empty_cache()
+        # prefill + decode through serve_step: K2 / K3 on the attention layer
+        sb = {"tokens": tokens[:, :512]}
+        lk, tk, ck = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
+        _family_expect("jamba prefill", ck["prefill"], dict(
+            zero, rmsnorm=2 * cfg.num_layers + 1, flash_attention=n_attn))
+        _family_expect("jamba decode", ck["decode"], dict(
+            zero, rmsnorm=(2 * cfg.num_layers + 1) * FAMILY_DECODE,
+            decode_attention=n_attn * FAMILY_DECODE))
+        k32 = _family_serve_f32("jamba", model, p16, sb, rt_k["f32"], mods, tk, ck, total)
+        lo, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
+        l32, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
+        cmp_serve = _family_compare("jamba prefill+decode", lk, lo, l32, k32=k32)
+        del model, p16, lk, lo, l32, k32
+        torch.cuda.empty_cache()
+        report["jamba-v0.1-52b"] = {
+            "layers": cfg.num_layers, "cut_from_layers": full.num_layers, "d_model": cfg.d_model,
+            "plan": [list(x) for x in plan], "params": cfg.param_counts()["total"],
+            "B": FAMILY_B, "S": FAMILY_S, "moe_capacity": {
+                "factor": cfg.moe.capacity_factor, "slots_per_expert": math.ceil(
+                    cfg.moe.capacity_factor * FAMILY_S * cfg.moe.top_k / cfg.moe.num_experts)},
+            "flash_kernel": flash_kernel, "forward": infos, "compare": cmp,
+            "serve_steps": {"prompt": 512, "decode_steps": FAMILY_DECODE, "launches": ck,
+                            "compare": cmp_serve},
+            "seconds": time.perf_counter() - t0}
+        emit({"phase": "families", "model": "jamba-v0.1-52b", **report["jamba-v0.1-52b"]})
+        _family_route("jamba", flash_kernel, "wgmma")
+
+        # -- minicpm3-4b: full width and depth (MLA) --------------------------------
+        t0 = time.perf_counter()
+        cfg = get_config("minicpm3-4b")
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads) == (62, 2560, 40)
+        L = cfg.num_layers
+        model, p16 = _family_init(cfg, torch.bfloat16)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FAMILY_B, 512))
+                                  .astype(np.int32)).cuda()
+        sb = {"tokens": tokens}
+        lk, tk, ck = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
+        flash_kernel = fla.flash_attention.last_kernel
+        norms = 4 * L + 1  # norm1, norm2, q_norm, kv_norm a layer, the final norm
+        _family_expect("minicpm3 prefill", ck["prefill"], dict(zero, rmsnorm=norms,
+                                                                flash_attention=L))
+        # decode attends in the latent space on the oracle, as the reference
+        _family_expect("minicpm3 decode", ck["decode"], dict(zero, rmsnorm=norms * FAMILY_DECODE))
+        k32 = _family_serve_f32("minicpm3-4b", model, p16, sb, rt_k["f32"], mods, tk, ck, total)
+        lo, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
+        l32, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
+        cmp = _family_compare("minicpm3-4b", lk, lo, l32, k32=k32)
+        del model, p16, lk, lo, l32, k32
+        torch.cuda.empty_cache()
+        served = _family_served("minicpm3-4b", mods, dict(
+            zero, rmsnorm=norms * 16, flash_attention=L))
+        _add_counts(total, served["launches"])
+        report["minicpm3-4b"] = {"layers": L, "d_model": cfg.d_model,
+                                 "params": cfg.param_counts()["total"], "prompt": 512,
+                                 "flash_kernel": flash_kernel, "launches": ck, "compare": cmp,
+                                 "serve": served, "seconds": time.perf_counter() - t0}
+        emit({"phase": "families", "model": "minicpm3-4b", **report["minicpm3-4b"]})
+        _family_route("minicpm3-4b", flash_kernel, "mma")
+
+        # -- whisper-base: encoder-decoder -------------------------------------
+        t0 = time.perf_counter()
+        cfg = get_config("whisper-base")
+        assert (cfg.encoder_layers, cfg.num_layers, cfg.d_model, cfg.encoder_seq_len) == (
+            6, 6, 512, 1500)
+        model, p16 = _family_init(cfg, torch.bfloat16)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FAMILY_B, 64))
+                                  .astype(np.int32)).cuda()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        enc = torch.randn((FAMILY_B, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                          device=tokens.device)
+        sb = {"tokens": tokens, "encoder_embeds": enc}
+        E, Ld = cfg.encoder_layers, cfg.num_layers
+        lk, tk, ck = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
+        _family_expect("whisper prefill", ck["prefill"], dict(zero, flash_attention=E + 2 * Ld))
+        _family_expect("whisper decode", ck["decode"], dict(
+            zero, decode_attention=2 * Ld * FAMILY_DECODE))
+        k32 = _family_serve_f32("whisper-base", model, p16, sb, rt_k["f32"], mods, tk, ck, total)
+        lo, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
+        l32, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
+        cmp = _family_compare("whisper-base", lk, lo, l32, k32=k32)
+        del model, p16, lk, lo, l32, k32
+        torch.cuda.empty_cache()
+        served = _family_served("whisper-base", mods, dict(
+            zero, flash_attention=E + 2 * Ld, decode_attention=2 * Ld * 31))
+        _add_counts(total, served["launches"])
+        report["whisper-base"] = {"layers": [E, Ld], "d_model": cfg.d_model,
+                                  "encoder_frames": cfg.encoder_seq_len,
+                                  "params": cfg.param_counts()["total"], "launches": ck,
+                                  "compare": cmp, "serve": served,
+                                  "seconds": time.perf_counter() - t0}
+        emit({"phase": "families", "model": "whisper-base", **report["whisper-base"]})
+
+    for k in ("ssm_scan", "gla_scan"):
+        if total[k] <= 0:
+            raise AssertionError(f"families: {k} was not launched on a model path")
+    cx.family_launches = total
+    emit({"phase": "families", "gpu": cx.smi, "family_launches": total,
+          "seconds": time.perf_counter() - t_phase})
+
+
 def kernels_line(cx):
     """The contract line: one entry per kernel, at the main path's shape and
     type.  The served kernels (bf16; the RMSNorm entry is the prefill one,
@@ -1735,6 +2239,7 @@ def kernels_line(cx):
                     "bound_by": by, "library_ms": row["library_ms"],
                     "bo_launches": cx.bo_launches[name],
                     "train_launches": cx.train_launches[name],
+                    "family_launches": cx.family_launches[name],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
 
@@ -1742,7 +2247,8 @@ def kernels_line(cx):
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "parity": phase_parity, "serve": phase_serve, "train": phase_train,
           "tuning_db": phase_tuning_db,
-          "sweep": phase_sweep, "bo": phase_bo, "service": phase_service}
+          "sweep": phase_sweep, "bo": phase_bo, "service": phase_service,
+          "families": phase_families}
 
 
 def main(argv=None):
@@ -1767,12 +2273,16 @@ def main(argv=None):
     t0 = time.perf_counter()
     cx = Ctx()
     cx.smi = ""
+    seconds = {}
     for name in phases:
+        t_phase = time.perf_counter()
         PHASES[name](cx)
+        seconds[name] = round(time.perf_counter() - t_phase, 1)
     complete = phases == list(PHASES)
     if complete:
         kernels_line(cx)
-    emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1), "phases": phases})
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1), "phases": phases,
+          "phase_seconds": seconds})
     print(run_text(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
           .splitlines()[0].strip(), flush=True)
     if not complete:

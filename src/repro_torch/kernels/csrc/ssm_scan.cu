@@ -17,10 +17,20 @@
 // = 0.128 ms.  The exponentials bound it, in f32 and more so in bf16.
 //
 // What the design does about it:
-//  * Each exponential once, on the SFU.  A's row is scaled by log2(e) once,
-//    when it is loaded; exp(dt A) is then one multiply and one
-//    `ex2.approx.ftz` (MUFU.EX2, ~2 ulp), computed exactly once per
-//    (batch, step, channel, state) of the padded state, never recomputed.
+//  * Each exponential once, on the SFU, and as accurate as `expf`.  A's row
+//    is scaled by log2(e) once, when it is loaded; exp(dt A) is then one
+//    fused multiply-add, t + 1 = dt A log2(e) + 1, and one `ex2.approx.ftz`
+//    (MUFU.EX2) of it, halved: computed exactly once per (batch, step,
+//    channel, state) of the padded state, never recomputed.  The + 1 moves
+//    the argument of a decay just below 1 (t just below 0, where MUFU.EX2
+//    proved less accurate) to just below 1; a decay within 1e-4 of 1 keeps
+//    an input for ~1e4 steps, so its error is summed that many times.  MUFU.EX2 of t itself put the output 6.6e-4
+//    from the plain version at S=8192 (4.6e-4 from float64, the plain
+//    version 2.6e-4); with t + 1 it is 1.5e-5 (2.5e-4 from float64), as
+//    with `expf`, which costs ~8 more instructions an exponential (0.451
+//    against 0.303 ms at Jamba's width; PERF.md, K4 accuracy).
+//    The state's update rounds the decay's product and the input's term
+//    apart, as the plain version does.
 //  * Lanes split the state.  A channel belongs to L neighbouring lanes of a
 //    warp (8 states a lane: L = 2 at N = 16; a padded state of 4 is one
 //    lane); lane l keeps states
@@ -61,10 +71,17 @@
 
 namespace {
 
+constexpr float LOG2E = 1.4426950408889634f;
+
 constexpr int U = 8;  // steps a thread computes as one group, their outputs stored after
 constexpr int MAX_THREADS = 512;  // threads a block may have
 constexpr size_t MAX_SMEM = 232448;
-constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -75,12 +92,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -151,10 +162,12 @@ __device__ __forceinline__ void widen(const __nv_bfloat16* src, float* dst, int 
   }
 }
 
-// one state: exp(dt A) on the SFU, the update, the output's share
+// one state: exp(dt A) = 2^(t + 1) / 2 with t = dt A log2(e) (``a2`` is A
+// log2(e)), the update with the plain version's roundings (no contraction
+// into a fused multiply-add; the halving is exact), the output's share
 __device__ __forceinline__ void elem(float dtv, float a2, float dtx, float bb, float cc,
                                      float& h, float& acc) {
-  h = fmaf(ex2(dtv * a2), h, dtx * bb);
+  h = __fadd_rn(__fmul_rn(ex2(fmaf(dtv, a2, 1.f)), __fmul_rn(h, 0.5f)), __fmul_rn(dtx, bb));
   acc = fmaf(h, cc, acc);
 }
 
@@ -250,7 +263,7 @@ __global__ void __launch_bounds__(MAX_THREADS) ssm_kernel(const SsmParams p) {
         const float4* b4 = reinterpret_cast<const float4*>(cur + (g + u) * ROW) + lane;
         const float4* c4 = b4 + NP / 4;
         const float dtv = dc[u];
-        const float dtx = dtv * xc[u];
+        const float dtx = __fmul_rn(dtv, xc[u]);
         float a0 = dskip * xc[u], a1 = 0.f;
 #pragma unroll
         for (int m = 0; m < NQ; ++m) {

@@ -6,27 +6,53 @@ package (src/repro/kernels/rmsnorm.py): ``y = x * rsqrt(mean(x², -1) + eps)
 
 Bound on this card: bytes.  Each element is read once and written once and
 takes about four operations, far below the card's operations-per-byte
-line, and nothing is reused between rows.  The design therefore only has to
-move each byte once, in wide coalesced accesses: one program per
-``block_rows`` rows (the reference's knob: rows per grid step) walks them
-in sub-tiles of ``(sub_rows, next_pow2(D))`` that fit its registers, reduces
-each row across the warp, and stores once.  The ragged last block and the
-columns past ``D`` are masked, nothing is padded by a copy.  Triton
-generates the 16-byte loads and the warp reduction that a CUDA C++ version
-would spell out by hand.
+line, and nothing is reused between rows.  So the kernel only has to keep
+enough bytes in flight on every SM, in wide coalesced accesses.  The card,
+not the tile knob, sets the launch geometry (``geometry``):
 
-A sub-tile holds at most ``MAX_TILE_ELEMS`` values (32 fp32 values per
-thread at 8 warps), so ``sub_rows = min(block_rows, MAX_TILE_ELEMS //
-next_pow2(D))``; a row wider than ``MAX_TILE_ELEMS`` is not supported.
+* the grid is one wave at most (``RESIDENT`` programs on each SM) and, when
+  there are rows enough, never less: a program holds ``tile_rows`` rows at
+  a time, few enough that the row tiles fill the wave, and strides over the
+  tiles (a persistent grid).  ``block_rows`` (the reference's knob) only
+  bounds ``tile_rows``; no choice of it leaves SMs idle.  Its choices
+  start at 8 rows, and the register cap (``MAX_TILE_ELEMS // chunk``) and
+  the wave rule (``rows // wave``) bind first unless D <= 256 and rows
+  fill 16 waves (8448 rows on 132 SMs): elsewhere, at rows=4096 and at
+  every D > 256 among them, every choice gives the same launch;
+* the loop over a program's tiles is software-pipelined (``STAGES``): the
+  loads of its next tile are in flight while it reduces the current one;
+* a row of up to ``MAX_CHUNK`` columns is held whole in registers, one
+  power-of-two tile masked past ``D``; a wider row is walked in
+  ``n_chunks`` chunks of ``MAX_CHUNK``, read twice (once for the sum of
+  squares, once to scale and store; the second read finds it in L1 / L2).
+  The masked lanes of a round-up cost little, the bound being bytes, and a
+  second read costs more: exact chunks (7 x 128 for 896) lose to one masked
+  tile of 1024, while at 2560 three chunks of 1024 beat one masked tile of
+  4096 (``python -m repro_torch.benchmarks.rmsnorm_chunking``; PERF.md).
+
+The ragged last tile and the columns past ``D`` are masked, nothing is
+padded by a copy.  Triton generates the 16-byte loads and the warp
+reduction that a CUDA C++ version would spell out by hand.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._tiles import clamp_tile, pow2_ceil
+from repro_torch.kernels._tiles import clamp_tile, pow2_ceil, pow2_floor, sm_count
 
-#: elements one program may hold (8 warps x 32 lanes x 32 registers)
-MAX_TILE_ELEMS = 8192
+#: values of one (tile_rows, chunk) tile a program loads at once, unless a
+#: single row is wider (16 fp32 registers a thread at 8 warps)
+MAX_TILE_ELEMS = 4096
+#: widest chunk (a row held whole), and most chunks a row (so the widest row)
+MAX_CHUNK = 1024
+MAX_CHUNKS = 32
+MAX_D = MAX_CHUNK * MAX_CHUNKS
+#: programs one wave counts on each SM, and the depth of the tile pipeline
+RESIDENT = 4
+STAGES = 2
+#: the pipeline stages a tile's loads in shared memory (a chunked row's
+#: twice): a tile of more bytes runs unpipelined
+MAX_STAGED_BYTES = 32 * 1024
 
 _KERNEL = None
 
@@ -40,15 +66,36 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def sub_rows(block_rows: int, D: int) -> int:
-    """Rows of one register-sized sub-tile of a program."""
-    return min(block_rows, MAX_TILE_ELEMS // pow2_ceil(D))
+def col_chunks(D: int):
+    """``(chunk, n_chunks)``: a row is walked in ``n_chunks`` chunks of
+    ``chunk`` columns, a power of two: one chunk (the row, masked) up to
+    ``MAX_CHUNK`` columns, chunks of ``MAX_CHUNK`` above."""
+    chunk = min(pow2_ceil(D), MAX_CHUNK)
+    return chunk, -(-D // chunk)
+
+
+def geometry(rows: int, D: int, block_rows: int, sms: int, itemsize: int = 4) -> dict:
+    """What a launch runs with, from the shapes, the element size and the
+    SM count: the chunking of a row, ``tile_rows`` (rows a program holds at
+    once: at most ``block_rows``, as many as a tile's registers allow, and
+    few enough that the tiles fill a wave of ``sms * RESIDENT`` programs),
+    the number of tiles, the grid (at most one wave, each program striding
+    over the tiles), the pipeline's stages and the warps of a program."""
+    chunk, n_chunks = col_chunks(D)
+    wave = sms * RESIDENT
+    tile = pow2_floor(max(1, min(block_rows, MAX_TILE_ELEMS // chunk, rows // wave)))
+    tiles = -(-rows // tile)
+    staged = tile * chunk * n_chunks * (1 if n_chunks == 1 else 2) * itemsize
+    staged = staged <= MAX_STAGED_BYTES
+    return {"chunk": chunk, "n_chunks": n_chunks, "tile_rows": tile, "tiles": tiles,
+            "grid": min(tiles, wave), "wave": wave, "stages": STAGES if staged else 1,
+            "num_warps": min(8, max(1, tile * chunk // 256))}
 
 
 def feasible(config: dict, shapes: dict, dtype=None) -> bool:
     """Whether ``config`` (``block_rows``) can launch at ``shapes`` (``D``):
-    a row must fit the registers of one program."""
-    return int(config["block_rows"]) >= 1 and pow2_ceil(int(shapes["D"])) <= MAX_TILE_ELEMS
+    a row must fit ``MAX_CHUNKS`` chunks."""
+    return int(config["block_rows"]) >= 1 and int(shapes["D"]) <= MAX_D
 
 
 def effective_config(block_rows: int, rows: int, D: int) -> dict:
@@ -68,24 +115,43 @@ def _kernel():
     import triton.language as tl
 
     @triton.jit
-    def _rmsnorm_fwd(x_ptr, s_ptr, o_ptr, rows, D, stride_x, stride_o, eps,
-                     BLOCK_ROWS: tl.constexpr, SUB_ROWS: tl.constexpr,
-                     BLOCK_D: tl.constexpr):
-        pid = tl.program_id(0)
-        c = tl.arange(0, BLOCK_D)
-        cmask = c < D
-        s = tl.load(s_ptr + c, mask=cmask, other=0.0).to(tl.float32)
-        for i in range(0, BLOCK_ROWS // SUB_ROWS):
-            r = pid * BLOCK_ROWS + i * SUB_ROWS + tl.arange(0, SUB_ROWS)
-            mask = (r < rows)[:, None] & cmask[None, :]
+    def _rmsnorm_fwd(x_ptr, s_ptr, o_ptr, rows, D, stride_x, stride_o, eps, n_tiles,
+                     TILE_ROWS: tl.constexpr, CHUNK: tl.constexpr,
+                     N_CHUNKS: tl.constexpr, STAGES: tl.constexpr):
+        c = tl.arange(0, CHUNK)
+        for t in tl.range(tl.program_id(0), n_tiles, tl.num_programs(0),
+                          num_stages=STAGES):
+            r = t * TILE_ROWS + tl.arange(0, TILE_ROWS)
+            rmask = r < rows
             r64 = r.to(tl.int64)
-            x = tl.load(x_ptr + r64[:, None] * stride_x + c[None, :],
-                        mask=mask, other=0.0).to(tl.float32)
-            var = tl.sum(x * x, axis=1) / D
-            inv = 1.0 / tl.sqrt(var + eps)
-            y = x * inv[:, None] * s[None, :]
-            tl.store(o_ptr + r64[:, None] * stride_o + c[None, :],
-                     y.to(o_ptr.dtype.element_ty), mask=mask)
+            x_row = x_ptr + r64[:, None] * stride_x
+            o_row = o_ptr + r64[:, None] * stride_o
+            if N_CHUNKS == 1:
+                cmask = c < D
+                m = rmask[:, None] & cmask[None, :]
+                x = tl.load(x_row + c[None, :], mask=m, other=0.0).to(tl.float32)
+                inv = 1.0 / tl.sqrt(tl.sum(x * x, axis=1) / D + eps)
+                s = tl.load(s_ptr + c, mask=cmask, other=0.0).to(tl.float32)
+                y = x * inv[:, None] * s[None, :]
+                tl.store(o_row + c[None, :], y.to(o_ptr.dtype.element_ty), mask=m)
+            else:
+                ssq = tl.zeros((TILE_ROWS,), dtype=tl.float32)
+                for j in tl.static_range(N_CHUNKS):
+                    cc = j * CHUNK + c
+                    m = rmask[:, None] & (cc < D)[None, :]
+                    x = tl.load(x_row + cc[None, :], mask=m, other=0.0,
+                                eviction_policy="evict_last").to(tl.float32)
+                    ssq += tl.sum(x * x, axis=1)
+                inv = 1.0 / tl.sqrt(ssq / D + eps)
+                for j in tl.static_range(N_CHUNKS):
+                    cc = j * CHUNK + c
+                    cmask = cc < D
+                    m = rmask[:, None] & cmask[None, :]
+                    x = tl.load(x_row + cc[None, :], mask=m, other=0.0,
+                                eviction_policy="evict_first").to(tl.float32)
+                    s = tl.load(s_ptr + cc, mask=cmask, other=0.0).to(tl.float32)
+                    y = x * inv[:, None] * s[None, :]
+                    tl.store(o_row + cc[None, :], y.to(o_ptr.dtype.element_ty), mask=m)
 
     _KERNEL = _rmsnorm_fwd
     return _KERNEL
@@ -107,6 +173,7 @@ def rmsnorm(
     cfg = effective_config(block_rows, rows, D)
     rmsnorm.last_config = cfg
     if x.device.type == "cpu":
+        rmsnorm.last_geometry = None
         return rmsnorm_plain(x, scale, eps)
     if x.device.type != "cuda":
         raise RuntimeError(f"rmsnorm kernel: unsupported device {x.device}")
@@ -121,14 +188,13 @@ def rmsnorm(
     out = torch.empty((rows, D), dtype=x.dtype, device=x.device)
     if rows == 0:
         return out.reshape(x.shape)
-    br = cfg["block_rows"]
-    sr = sub_rows(br, D)
-    block_d = pow2_ceil(D)
-    num_warps = min(8, max(1, sr * block_d // 1024))
+    g = geometry(rows, D, cfg["block_rows"], sm_count(x.device), x.element_size())
+    rmsnorm.last_geometry = g
     with torch.cuda.device(x.device):
-        _kernel()[((rows + br - 1) // br,)](
-            xr, scale, out, rows, D, xr.stride(0), out.stride(0), float(eps),
-            BLOCK_ROWS=br, SUB_ROWS=sr, BLOCK_D=block_d, num_warps=num_warps)
+        _kernel()[(g["grid"],)](
+            xr, scale, out, rows, D, xr.stride(0), out.stride(0), float(eps), g["tiles"],
+            TILE_ROWS=g["tile_rows"], CHUNK=g["chunk"], N_CHUNKS=g["n_chunks"],
+            STAGES=g["stages"], num_warps=g["num_warps"])
     rmsnorm.launches += 1
     return out.reshape(x.shape)
 
@@ -137,3 +203,5 @@ def rmsnorm(
 rmsnorm.launches = 0
 #: the tiles the last call ran with (after clamping)
 rmsnorm.last_config = None
+#: the launch geometry of the last call (``geometry``); None on the CPU path
+rmsnorm.last_geometry = None

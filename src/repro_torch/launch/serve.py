@@ -9,8 +9,11 @@ fixed decode batches (left-padded), prefills, then decodes until every
 request has ``gen_len`` tokens, wave after wave.
 
 Runs on the card (``--device cuda``, the default) through the hand-written
-kernels (``Runtime(attn_impl="cuda")``), and raises when there is no card.
-``--device cpu`` is for tests: it takes the oracles (``attn_impl="ref"``).
+kernels (``runtime``: attention, RMSNorm and the scans), and raises when
+there is no card.  ``--device cpu`` is for tests: it takes the oracles.
+An encoder-decoder model (whisper) gets zero ``encoder_embeds`` of
+``encoder_seq_len`` frames, a VLM zero ``image_embeds``, as in the
+reference.
 Beyond the flags of the reference package's script: ``--device``, ``--dtype`` and
 ``--no-reduced`` (the reference's ``--reduced`` cannot be switched off).
 """
@@ -22,10 +25,31 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models.model import build_model
-from repro_torch.models.params import split_params, tree_map
+from repro_torch.models.params import split_params
 from repro_torch.models.runtime import Runtime
 from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
                                           make_prefill_step)
+
+
+def runtime(on_card: bool, dtype: str) -> Runtime:
+    """The served runtime: on the card every kernel of the path (attention,
+    decode attention, RMSNorm, and the scans in a ``full`` forward); on the
+    CPU the oracles."""
+    impl = "cuda" if on_card else "ref"
+    return Runtime(compute_dtype=dtype, attn_impl=impl,
+                   scan_impl="cuda" if on_card else "chunked")
+
+
+def frontend_inputs(cfg, B: int, device) -> dict:
+    """The stub frontends' zero embeddings a batch of ``cfg`` carries."""
+    batch = {}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.zeros(
+            (B, cfg.num_frontend_tokens, cfg.d_model), device=device)
+    if cfg.encoder_layers:
+        batch["encoder_embeds"] = torch.zeros(
+            (B, cfg.encoder_seq_len, cfg.d_model), device=device)
+    return batch
 
 
 def main(argv=None):
@@ -58,8 +82,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
-    rt = Runtime(compute_dtype=args.dtype,
-                 attn_impl="cuda" if on_card else "ref")
+    rt = runtime(on_card, args.dtype)
     tuning_db = None
     if args.tuning_db:
         from repro_torch.tuning.tundb import TuningDB, hardware_fingerprint
@@ -67,9 +90,9 @@ def main(argv=None):
                              fingerprint=hardware_fingerprint(device.type))
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    params, _ = split_params(model.init(gen))
-    # cast once: the steps then find every weight in the compute dtype
-    params = tree_map(lambda a: a.to(rt.dtype()), params)
+    # cast once, block by block: the steps then find every weight in the
+    # compute dtype
+    params, _ = split_params(model.init(gen, dtype=rt.dtype()))
 
     rng = np.random.default_rng(0)
     prompts = [
@@ -96,10 +119,8 @@ def main(argv=None):
         toks = np.zeros((B, args.prompt_len), np.int32)
         for i, (_, p) in enumerate(wave):  # left-pad to a packed batch
             toks[i, args.prompt_len - len(p):] = p
-        batch = {"tokens": torch.from_numpy(toks).to(device)}
-        if cfg.family == "vlm":
-            batch["image_embeds"] = torch.zeros(
-                (B, cfg.num_frontend_tokens, cfg.d_model), device=device)
+        batch = {"tokens": torch.from_numpy(toks).to(device),
+                 **frontend_inputs(cfg, B, device)}
         cache, _ = split_params(model.init_cache(B, cache_len, device=device))
         logits, cache = prefill(params, batch, cache)
         tok = greedy_sample(logits)

@@ -11,9 +11,8 @@ straggler detection) is active either way; ``--inject-failure``
 demonstrates recovery.
 
 Runs on the card (``--device cuda``, the default) through the hand-written
-kernels forward (``Runtime(attn_impl="cuda")``: RMSNorm and flash
-attention, each with its oracle's backward), and raises when there is no
-card.  ``--device cpu`` takes the oracles.  Beyond the flags of the
+kernels forward (``runtime``: RMSNorm, flash attention and the scans, each
+with its oracle's backward), and raises when there is no card.  ``--device cpu`` takes the oracles.  Beyond the flags of the
 reference package's script: ``--device`` and ``--remat``; ``--tuning-db``
 is live here (the kernels consult it), where the reference's oracles never
 read it.
@@ -29,6 +28,13 @@ from repro_torch.models.runtime import REMAT_MODES, Runtime
 from repro_torch.optim.optimizer import OptimizerConfig
 from repro_torch.runtime.fault_tolerance import FailureInjector
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def runtime(on_card: bool, remat: str) -> Runtime:
+    """The trained runtime, f32: on the card the kernels forward (attention,
+    RMSNorm and the scans); on the CPU the oracles."""
+    return Runtime(compute_dtype="f32", attn_impl="cuda" if on_card else "ref",
+                   scan_impl="cuda" if on_card else "chunked", remat=remat)
 
 
 def main(argv=None):
@@ -83,8 +89,7 @@ def main(argv=None):
                          device=args.device)
     injector = (FailureInjector(at_steps=[args.inject_failure])
                 if args.inject_failure is not None else None)
-    rt = Runtime(compute_dtype="f32", attn_impl="cuda" if on_card else "ref",
-                 remat=args.remat)
+    rt = runtime(on_card, args.remat)
     if args.tuning_db:
         from repro_torch.tuning.tundb import TuningDB, hardware_fingerprint
         rt = dataclasses.replace(rt, tuning_db=TuningDB(

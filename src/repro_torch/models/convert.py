@@ -36,10 +36,22 @@ def params_from_numpy(tree, *, device, dtype=None):
     return tree_map(conv, tree)
 
 
+#: cache leaves the reference stores in bfloat16: attention K/V (``k``,
+#: ``v``, also the encoder-decoder's cross K/V) and MLA's latents; the
+#: recurrent states (Mamba's ``conv`` / ``h``, RWKV's ``x_tmix`` /
+#: ``x_cmix`` / ``S``) are float32
+BF16_CACHE_LEAVES = ("k", "v", "ckv", "krope")
+
+
 def cache_from_numpy(tree, *, device):
     """Reference cache tree (numpy leaves) -> the port's: ``pos`` becomes a
-    host integer, the K/V buffers go back to bfloat16 (what the reference
-    stores, however the leaves were widened on the way)."""
-    layers = tree_map(lambda a: _leaf_to_tensor(a, device).to(torch.bfloat16),
-                      tree["layers"])
-    return {"pos": int(np.asarray(tree["pos"])), "layers": layers}
+    host integer, and each leaf gets the type the reference stores it in
+    (``BF16_CACHE_LEAVES`` bfloat16, the rest float32), however the leaves
+    were widened on the way."""
+
+    def conv(node):
+        return {k: conv(v) if isinstance(v, dict) else _leaf_to_tensor(v, device).to(
+            torch.bfloat16 if k in BF16_CACHE_LEAVES else torch.float32)
+            for k, v in node.items()}
+
+    return {"pos": int(np.asarray(tree["pos"])), "layers": conv(tree["layers"])}

@@ -1,5 +1,6 @@
-"""Unified decoder-only LM.  This slice serves the dense family (attention
-mixer, dense MLP); the other mixers and MLP kinds raise until their slice.
+"""Unified decoder-only LM covering the dense / MoE / hybrid / SSM / VLM
+families (four mixers: attention, MLA, Mamba, RWKV-6; three MLP kinds:
+dense, MoE, RWKV's channel mix).
 
 Layer stacks follow the *repeating period* of the layer plan
 (configs/base.py:layer_period): per-period-position parameters are stacked
@@ -36,6 +37,9 @@ from repro_torch.models.layers import shard_hint
 
 MIXER_INIT = {
     "attn": L.init_attention,
+    "mla": L.init_mla,
+    "mamba": L.init_mamba,
+    "rwkv": L.init_rwkv_tmix,
 }
 
 
@@ -73,52 +77,57 @@ def _remat(fn, mode: str, *args):
     return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
 
 
-def _not_ported(what: str, kind: str):
-    return NotImplementedError(
-        f"{what} kind {kind!r} is not ported yet (ROADMAP.md, Queue A: "
-        "remaining model families)")
-
-
 def _init_block(gen, cfg: ModelConfig, mixer_kind: str, mlp_kind: str) -> dict:
-    if mixer_kind not in MIXER_INIT:
-        raise _not_ported("mixer", mixer_kind)
-    if cfg.rwkv is not None:
-        raise _not_ported("mlp", "rwkv_cmix")
-    if mlp_kind == "moe":
-        raise _not_ported("mlp", mlp_kind)
-    return {
+    block = {
         "norm1": L.init_rmsnorm(cfg.d_model, device=gen.device),
         "mixer": MIXER_INIT[mixer_kind](gen, cfg),
         "norm2": L.init_rmsnorm(cfg.d_model, device=gen.device),
-        "mlp": L.init_mlp(gen, cfg),
     }
+    if cfg.rwkv is not None:
+        block["mlp"] = L.init_rwkv_cmix(gen, cfg)
+    elif mlp_kind == "moe":
+        block["mlp"] = L.init_moe(gen, cfg)
+    else:
+        block["mlp"] = L.init_mlp(gen, cfg)
+    return block
 
 
-def init_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Returns a P-tree (values + logical axes), f32, on the generator's
-    device.  Same tree structure, shapes and distributions as the reference
-    package; the random numbers themselves differ."""
+def cast_tree(tree, dtype):
+    """The P-tree with every floating leaf cast to ``dtype`` (None: as is)."""
+    if dtype is None:
+        return tree
+    return tree_map(lambda p: P(p.value.to(dtype) if p.value.is_floating_point()
+                                else p.value, p.axes), tree)
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
+    """Returns a P-tree (values + logical axes), on the generator's device.
+    Same tree structure, shapes and distributions as the reference package;
+    the random numbers themselves differ.  Drawn in f32; ``dtype`` casts
+    each block as soon as it is drawn, so the f32 copy of the whole model
+    never exists (a period of Jamba is 53 GB in f32)."""
     plan = cfg.layer_plan()
     period = cfg.layer_period()
     n_periods = cfg.num_layers // period
 
-    params = {
+    params = cast_tree({
         "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model),
                             ("vocab", "embed"), fan_in=cfg.d_model),
         "final_norm": L.init_rmsnorm(cfg.d_model, device=gen.device),
-    }
+    }, dtype)
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
-                                    ("embed", "vocab"), fan_in=cfg.d_model)
+        params["head"] = cast_tree(dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                              ("embed", "vocab"), fan_in=cfg.d_model), dtype)
 
     blocks = {}
     for pos in range(period):
         mixer_kind, mlp_kind = plan[pos]
         per_period = [
-            _init_block(gen, cfg, mixer_kind, mlp_kind)
+            cast_tree(_init_block(gen, cfg, mixer_kind, mlp_kind), dtype)
             for _ in range(n_periods)
         ]
         blocks[f"pos{pos}"] = stack_layer_params(per_period)
+        del per_period  # the stack is a copy: free the drawn blocks now
     params["blocks"] = blocks
     return params
 
@@ -136,8 +145,15 @@ def _block_apply(
     if mixer_kind == "attn":
         h, mc = L.attention_apply(block["mixer"], h, cfg=cfg, rt=rt, mode=mode,
                                   cache=mixer_cache, pos=pos, use_rope=use_rope)
-    elif mixer_kind in ("mla", "mamba", "rwkv"):
-        raise _not_ported("mixer", mixer_kind)
+    elif mixer_kind == "mla":
+        h, mc = L.mla_apply(block["mixer"], h, cfg=cfg, rt=rt, mode=mode,
+                            cache=mixer_cache, pos=pos)
+    elif mixer_kind == "mamba":
+        h, mc = L.mamba_apply(block["mixer"], h, cfg=cfg, rt=rt, mode=mode,
+                              cache=mixer_cache, pos=pos)
+    elif mixer_kind == "rwkv":
+        h, mc = L.rwkv_tmix_apply(block["mixer"], h, cfg=cfg, rt=rt, mode=mode,
+                                  cache=mixer_cache)
     else:
         raise ValueError(mixer_kind)
     x = x + checkpoint_name(h, "mixer_out", mark)
@@ -145,13 +161,18 @@ def _block_apply(
         new_cache["mixer"] = mc
 
     h = L.rmsnorm(block["norm2"], x, cfg.norm_eps, rt)
+    aux = 0.0
     if cfg.rwkv is not None:
-        raise _not_ported("mlp", "rwkv_cmix")
-    if mlp_kind == "moe":
-        raise _not_ported("mlp", mlp_kind)
-    h = L.mlp_apply(block["mlp"], h, cfg=cfg, rt=rt)
+        h, cc = L.rwkv_cmix_apply(block["mlp"], h, cfg=cfg, rt=rt, mode=mode,
+                                  cache=cache.get("mlp") if cache else None)
+        if cc is not None:
+            new_cache["mlp"] = cc
+    elif mlp_kind == "moe":
+        h, aux = L.moe_apply(block["mlp"], h, cfg=cfg, rt=rt)
+    else:
+        h = L.mlp_apply(block["mlp"], h, cfg=cfg, rt=rt)
     x = x + checkpoint_name(h, "mlp_out", mark)
-    return x, 0.0, (new_cache or None)
+    return x, aux, (new_cache or None)
 
 
 def _embed(params, tokens, cfg, rt, image_embeds=None):
@@ -270,9 +291,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dic
     n_periods = cfg.num_layers // period
 
     def cache_for(mixer_kind):
-        if mixer_kind != "attn":
-            raise _not_ported("mixer", mixer_kind)
-        return {"mixer": L.init_attention_cache(cfg, batch, cache_len, device=device)}
+        if mixer_kind == "attn":
+            return {"mixer": L.init_attention_cache(cfg, batch, cache_len, device=device)}
+        if mixer_kind == "mla":
+            return {"mixer": L.init_mla_cache(cfg, batch, cache_len, device=device)}
+        if mixer_kind == "mamba":
+            return {"mixer": L.init_mamba_cache(cfg, batch, device=device)}
+        rc = L.init_rwkv_cache(cfg, batch, device=device)
+        return {"mixer": {"x_tmix": rc["x_tmix"], "S": rc["S"]},
+                "mlp": {"x_cmix": rc["x_cmix"]}}
 
     layer_caches = {}
     for pos_i in range(period):

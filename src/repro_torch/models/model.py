@@ -9,8 +9,7 @@ interface used by the server (and later the trainer, benchmarks and tuner):
     cache = model.init_cache(batch=8, cache_len=1024, device=dev)
     logits, cache = model.decode_step(values, tok, cache_values, rt=rt)
 
-Encoder-decoder configs and ``input_specs`` (shape stand-ins for the
-dry run) follow with their slices.
+``input_specs`` (shape stand-ins for the dry run) follows with its slice.
 """
 from __future__ import annotations
 
@@ -19,24 +18,26 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.runtime import Runtime
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.encoder_layers > 0:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder models are not ported yet "
-                "(ROADMAP.md, Queue A: remaining model families)")
         self.cfg = cfg
-        self.is_encdec = False
+        self.is_encdec = cfg.encoder_layers > 0
 
     # -- params / cache -----------------------------------------------------
-    def init(self, gen: torch.Generator) -> dict:
-        return lm.init_lm(gen, self.cfg)
+    def init(self, gen: torch.Generator, dtype=None) -> dict:
+        """P-tree on ``gen.device``, drawn in f32; ``dtype`` casts each
+        block as it is drawn (see ``lm.init_lm``)."""
+        if self.is_encdec:
+            return encdec.init_encdec(gen, self.cfg, dtype)
+        return lm.init_lm(gen, self.cfg, dtype)
 
     def init_cache(self, batch: int, cache_len: int, device=None) -> dict:
+        if self.is_encdec:
+            return encdec.init_cache(self.cfg, batch, cache_len, device=device)
         return lm.init_cache(self.cfg, batch, cache_len, device=device)
 
     # -- compute ------------------------------------------------------------
@@ -50,12 +51,19 @@ class Model:
         cache: Optional[dict] = None,
     ):
         """Returns (logits, aux_loss, new_cache)."""
+        if self.is_encdec:
+            return encdec.forward(
+                params, batch["tokens"], batch["encoder_embeds"],
+                cfg=self.cfg, rt=rt, mode=mode, cache=cache,
+            )
         return lm.forward(
             params, batch["tokens"], cfg=self.cfg, rt=rt, mode=mode,
             cache=cache, image_embeds=batch.get("image_embeds"),
         )
 
     def decode_step(self, params, tokens, cache, *, rt: Runtime):
+        if self.is_encdec:
+            return encdec.decode_step(params, tokens, cache, cfg=self.cfg, rt=rt)
         return lm.decode_step(params, tokens, cache, cfg=self.cfg, rt=rt)
 
 

@@ -61,7 +61,8 @@ def test_port_has_the_expected_modules():
                  "repro_torch.benchmarks.perf_iterations",
                  "repro_torch.optim.optimizer", "repro_torch.data.pipeline",
                  "repro_torch.runtime.fault_tolerance", "repro_torch.train.train_step",
-                 "repro_torch.train.trainer", "repro_torch.launch.train"):
+                 "repro_torch.train.trainer", "repro_torch.launch.train",
+                 "repro_torch.models.layers", "repro_torch.models.encdec"):
         assert must in MODULES
 
 

@@ -309,12 +309,14 @@ def test_tile_requests_are_clamped_to_feasible_powers_of_two():
     assert fla_mod.effective_config(128, 128, 37, 29, 16, 16) == {"block_q": 64, "block_kv": 32}
     assert dec_mod.effective_config(512, 14, 2, 64) == {"block_kv": 64}
     assert dec_mod.effective_config(1, 8, 2, 16) == {"block_kv": dec_mod.MIN_BLOCK_KV}
-    # block_rows is rows per program, walked in sub-tiles that fit registers
+    # block_rows bounds the rows a program holds; the grid fills the card
     assert rms_mod.effective_config(256, 4096, 896) == {"block_rows": 256}
-    assert rms_mod.sub_rows(256, 896) == 8 and rms_mod.sub_rows(4, 896) == 4
+    assert rms_mod.geometry(4096, 896, 256, 132)["tile_rows"] == 4
+    assert rms_mod.geometry(4096, 896, 1, 132)["tile_rows"] == 1
     assert rms_mod.effective_config(256, 3, 64) == {"block_rows": 4}
     assert rms_mod.feasible({"block_rows": 4096}, {"D": 896})
-    assert not rms_mod.feasible({"block_rows": 1}, {"D": 2 * rms_mod.MAX_TILE_ELEMS})
+    assert rms_mod.feasible({"block_rows": 1}, {"D": rms_mod.MAX_D})
+    assert not rms_mod.feasible({"block_rows": 1}, {"D": rms_mod.MAX_D + 1})
     assert clamp_tile("t", 96, lambda t: t <= 16) == 16
 
 

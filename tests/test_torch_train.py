@@ -54,6 +54,7 @@ from repro_torch.runtime.fault_tolerance import FailureInjector
 from repro_torch.serve.serve_step import generate
 from repro_torch.train.train_step import (cross_entropy, make_loss_fn,
                                           make_train_step, value_and_grad)
+from repro_torch.train import trainer as trainer_mod
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 ARCH = "qwen2-0.5b"
@@ -284,7 +285,22 @@ def test_trainer_with_reference_weights_matches_reference_trainer(ref):
         assert got["seconds"] > 0
 
 
-def test_trainer_loss_decreases():
+class _StepClock:
+    """Stands in for the ``time`` module the trainer reads: every reading
+    advances 0.1 s, so each step takes exactly 0.1 s.  The real clock
+    measures the host's load (under six test workers on a shared host, a
+    few slow steps in a row make the straggler detector raise an event)."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        self.now += 0.1
+        return self.now
+
+
+def test_trainer_loss_decreases(monkeypatch):
+    monkeypatch.setattr(trainer_mod, "time", _StepClock())
     cfg = get_config(ARCH).reduced()
     trainer = Trainer(
         cfg,
@@ -300,7 +316,8 @@ def test_trainer_loss_decreases():
     assert trainer.events == []
 
 
-def test_failure_recovery_replays_the_stream(tmp_path):
+def test_failure_recovery_replays_the_stream(tmp_path, monkeypatch):
+    monkeypatch.setattr(trainer_mod, "time", _StepClock())
     cfg = get_config(ARCH).reduced()
     common = dict(opt_cfg=OptimizerConfig(learning_rate=1e-3, warmup_steps=5, total_steps=40),
                   data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4),
