@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases env,build,kernels
     python3 chip_smoke.py --phases env,build,bo,service
     python3 chip_smoke.py --phases env,build,families
+    python3 chip_smoke.py --phases env,build,train,paper,host_knobs
 
 Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
@@ -28,7 +29,14 @@ runs one BO job through them.  The ``families`` phase runs the other
 model families at full width (rwkv6-3b, one period of Jamba v0.1,
 minicpm3-4b, whisper-base) through the kernels, K4 and K5 included,
 against the oracle path on the same weights, and serves three of them
-through ``repro_torch.launch.serve``.  Each phase prints JSON lines; any failure
+through ``repro_torch.launch.serve``.  The ``paper`` phase runs the paper's
+experiment on the card: BO, GA and Nelder-Mead tune the measured training
+throughput of ``dense_lm`` (qwen2-0.5b at full width and depth) through
+``repro_torch.examples.quickstart``, then GA the other four workloads
+(qwen3-MoE and RWKV-6 at full width, depth cut; the convnet and NCF at the
+reference's sizes).  The ``host_knobs`` phase measures K1 in fresh child
+processes at two thread counts (``KernelTuneEvaluator(allow_subprocess=
+True)``).  Each phase prints JSON lines; any failure
 ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -168,6 +176,24 @@ RESUME_REPLAYED = 2  # the step run twice: before the failure and after the rest
 SWEEP_SERVE_ARGS = ["--arch", "qwen2-0.5b", "--no-reduced", "--dtype", "f32",
                     "--requests", "8", "--prompt-len", "512", "--gen-len", "64",
                     "--batch", "8"]
+
+
+# the paper's experiment: dense_lm (qwen2-0.5b, full width and depth) at 512
+# tokens a sequence, f32, each engine at budget 8 (seed 0); the other workloads
+# 4 points each (GA, seed 0), the two language models at full width with their
+# depth cut so that a step's weights, grads and AdamW state fit beside the
+# activations of batch 16
+PAPER_SEQ = 512
+PAPER_BUDGET = 8
+PAPER_SMALL_BUDGET = 4
+PAPER_LAYERS = {"moe_lm": 2, "rwkv": 4}  # cut from 48 and 32
+# the point the cross-check and the parity check run: the train phase's
+# batch, tile (64 x 64 in f32) and remat
+PAPER_CHECK_POINT = {"batch": 8, "microbatches": 1, "remat": "none", "block_q": 64}
+PAPER_STEP_RTOL = 0.15   # its step time against the train phase's median step
+PAPER_LOSS_RTOL = 1e-4   # its loss on the kernel path against the oracle path
+# host knobs: K1 at its sweep shape in a child process a thread count
+HOST_THREADS = (1, 8)
 
 
 def emit(obj):
@@ -1189,6 +1215,7 @@ def _train_phase(cx, cfg, base_args, device):
         raise AssertionError(f"train: the loss did not fall: {main['losses']}")
     cx.train_launches = main["launches"]
     med = statistics.median(main["seconds"])
+    cx.train_median_step = med
     emit(dict(common, part="main", steps=TRAIN_STEPS, losses=main["losses"],
               grad_norms=main["grad_norms"], step_seconds=main["seconds"],
               median_step_seconds=med, tokens_per_s=B * S / med,
@@ -2199,6 +2226,215 @@ def phase_families(cx):
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# the paper's experiment on the card, and the thread knobs in fresh processes
+# ---------------------------------------------------------------------------
+
+
+def _paper_points(history):
+    """Each measured point of a tuning run: value, point, step seconds, peak
+    device bytes, the attention tile it ran with, or why it failed."""
+    out = []
+    for e in history.evals:
+        m = e.meta
+        out.append({"point": e.point, "value": e.value,
+                    "step_seconds": m.get("step_seconds"), "iters": m.get("iters"),
+                    "peak_bytes": m.get("peak_bytes"), "attn_config": m.get("attn_config"),
+                    "attn_kernel": m.get("attn_kernel"), "oom": bool(m.get("oom")),
+                    "error": m.get("error")})
+    return out
+
+
+def _paper_tune(name, ev, space, mods, budget, algos):
+    """``quickstart.tune`` of one workload, the kernels' counts zeroed just
+    before and read just after; per engine its best, coverage, seconds and
+    ask seconds, and every point."""
+    import torch
+
+    from repro_torch.examples import quickstart
+
+    _zero_counts(mods)
+    t0 = time.perf_counter()
+    results = quickstart.tune(ev, space, budget=budget, seed=0, algos=algos,
+                              verbose=False, emit=lambda *_: None)
+    seconds = time.perf_counter() - t0
+    counts = _counts(mods)
+    torch.cuda.synchronize()
+    engines, n_oom, peak = {}, 0, 0
+    for algo, r in results.items():
+        points = _paper_points(r["history"])
+        for i, p in enumerate(points):
+            emit({"phase": "paper", "workload": name, "engine": algo, "i": i, **p})
+        n_oom += sum(p["oom"] for p in points)
+        # a batch that does not split into the microbatches fails in the
+        # reference too (-inf); any other failure fails the phase
+        indivisible = [p for p in points if "does not split into" in (p["error"] or "")]
+        failed = [p for p in points if not math.isfinite(p["value"]) and not p["oom"]
+                  and p not in indivisible]
+        if failed:
+            raise AssertionError(f"paper {name} {algo}: a point failed: {failed[0]}")
+        peak = max([peak] + [p["peak_bytes"] or 0 for p in points])
+        best = r["best"]
+        asks = sum(r["ask_seconds"])
+        engines[algo] = {"best_value": best.value, "best_point": best.point,
+                         "coverage": r["coverage"], "seconds": r["seconds"],
+                         "ask_seconds": asks, "ask_share": asks / r["seconds"],
+                         "asks": len(r["ask_seconds"]), "points": len(points),
+                         "oom_points": sum(p["oom"] for p in points),
+                         "indivisible_points": len(indivisible)}
+        if not math.isfinite(best.value):
+            raise AssertionError(f"paper {name} {algo}: no point ran")
+    return {"engines": engines, "launches": counts, "seconds": seconds,
+            "oom_points": n_oom, "peak_bytes": peak}
+
+
+def phase_paper(cx):
+    """The paper's experiment on the card, through the entry points a user
+    calls (``repro_torch.benchmarks.workloads.MeasuredEvaluator`` under
+    ``repro_torch.examples.quickstart.tune``).  dense_lm at qwen2-0.5b's
+    full width and depth: BO, GA and NMS, budget 8 each, K1 and K2 on the
+    path; one point's step time against the train phase's median step, and
+    its loss on the kernel path against the oracle path from the same
+    weights and batch.  Then moe_lm (K2) and rwkv (K5) at full width, depth
+    cut, and the convnet and NCF at the reference's sizes, 4 GA points
+    each.  An out-of-memory point scores -inf, as a failed run does."""
+    import torch
+
+    from repro_torch.benchmarks import workloads as wl
+    from repro_torch.core import SearchSpace
+    from repro_torch.models.runtime import Runtime
+
+    cx.model = cx.params = None
+    torch.cuda.empty_cache()
+    mods = _kernel_wrappers()
+    total = {k: 0 for k in mods}
+    report = {}
+    by_name = {w["name"]: w for w in wl.MEASURED_WORKLOADS}
+
+    # -- dense_lm: full width and depth, the three engines --------------------
+    w = by_name["dense_lm"]
+    cfg = wl.lm_config(w, reduced=False)
+    assert (cfg.num_layers, cfg.d_model, cfg.vocab_size) == (24, 896, 151936)
+    build = dict(reduced=False, seq_len=PAPER_SEQ)
+    params = wl.lm_params(cfg, device="cuda")
+    ev = wl.MeasuredEvaluator(w, device="cuda", iters=2, params=params, **build)
+    space = SearchSpace.from_dicts(w["space"])
+    run = _paper_tune("dense_lm", ev, space, mods, PAPER_BUDGET, ("bo", "ga", "nms"))
+    for k in ("rmsnorm", "flash_attention"):
+        if run["launches"][k] <= 0:
+            raise AssertionError(f"paper dense_lm: {k} was not launched")
+    _add_counts(total, run["launches"])
+
+    # the cross-check: the train phase's step through the workload's harness
+    value, meta = ev(PAPER_CHECK_POINT)
+    check = {"point": PAPER_CHECK_POINT, "value": value, "step_seconds": meta.get("step_seconds"),
+             "attn_config": meta.get("attn_config"), "peak_bytes": meta.get("peak_bytes"),
+             "train_median_step_seconds": getattr(cx, "train_median_step", None)}
+    if not math.isfinite(value):
+        raise AssertionError(f"paper: the check point failed: {meta}")
+    if check["train_median_step_seconds"] is not None:
+        rel = abs(meta["step_seconds"] / cx.train_median_step - 1)
+        check["rel_diff"] = rel
+        if rel > PAPER_STEP_RTOL:
+            raise AssertionError(f"paper: step {meta['step_seconds']:.5f} s is {rel:.1%} from "
+                                 f"the train phase's {cx.train_median_step:.5f} s")
+    else:
+        check["rel_diff"] = "not checked: the train phase did not run"
+
+    # the parity check: one loss, kernel path against oracle path
+    oracle = Runtime(compute_dtype="f32", attn_impl="chunked", scan_impl="chunked")
+    losses = {}
+    for label, rt in (("kernels", None), ("oracle", oracle)):
+        fn, args, _ = wl.measured_make_step(w, device="cuda", params=params, runtime=rt,
+                                            **build)(PAPER_CHECK_POINT)
+        _zero_counts(mods)
+        losses[label] = float(fn(*args))
+        launched = _counts(mods)
+        del fn, args
+        if (label == "oracle") != (sum(launched.values()) == 0):
+            raise AssertionError(f"paper parity: the {label} path launched {launched}")
+    rel = abs(losses["kernels"] - losses["oracle"]) / abs(losses["oracle"])
+    if not (math.isfinite(losses["kernels"]) and rel <= PAPER_LOSS_RTOL):
+        raise AssertionError(f"paper parity: losses {losses}, rel {rel:.3e}")
+    report["dense_lm"] = dict(run, layers=cfg.num_layers, d_model=cfg.d_model, seq=PAPER_SEQ,
+                              params=cfg.param_counts()["total"], check=check,
+                              parity={"losses": losses, "rel": rel, "rtol": PAPER_LOSS_RTOL})
+    emit({"phase": "paper", "workload": "dense_lm", **report["dense_lm"]})
+    del ev, params
+    torch.cuda.empty_cache()
+
+    # -- the other four: GA, 4 points each ------------------------------------
+    for name, needs in (("moe_lm", "flash_attention"), ("rwkv", "gla_scan"),
+                        ("convnet", None), ("ncf", None)):
+        w = by_name[name]
+        extra = {}
+        if w["kind"] == "lm":
+            extra = dict(build, num_layers=PAPER_LAYERS[name])
+            cfg = wl.lm_config(w, reduced=False, num_layers=PAPER_LAYERS[name])
+            extra_report = {"layers": cfg.num_layers, "d_model": cfg.d_model, "seq": PAPER_SEQ,
+                            "params": cfg.param_counts()["total"]}
+        else:
+            extra_report = {}
+        ev = wl.MeasuredEvaluator(w, device="cuda", iters=2, **extra)
+        run = _paper_tune(name, ev, SearchSpace.from_dicts(w["space"]), mods,
+                          PAPER_SMALL_BUDGET, ("ga",))
+        if needs is not None and run["launches"][needs] <= 0:
+            raise AssertionError(f"paper {name}: {needs} was not launched")
+        _add_counts(total, run["launches"])
+        report[name] = dict(run, **extra_report)
+        emit({"phase": "paper", "workload": name, **report[name]})
+        del ev
+        torch.cuda.empty_cache()
+
+    cx.paper_launches = total
+    emit({"phase": "paper", "gpu": cx.smi, "paper_launches": total,
+          "oom_points": {k: v["oom_points"] for k, v in report.items()},
+          "peak_bytes": {k: v["peak_bytes"] for k, v in report.items()},
+          "seconds": {k: v["seconds"] for k, v in report.items()}})
+
+
+def _openmp_library():
+    """The OpenMP runtime mapped into this process (GNU ``libgomp`` or Intel
+    ``libiomp5``): what decides whether ``KMP_BLOCKTIME`` is read at all."""
+    with open("/proc/self/maps") as f:
+        names = {os.path.basename(line.split()[-1]) for line in f if "omp" in line}
+    return sorted(n for n in names if n.startswith(("libgomp", "libiomp", "libomp")))
+
+
+def phase_host_knobs(cx):
+    """The paper's thread knobs in fresh processes: K1 at its sweep shape
+    through ``KernelTuneEvaluator(allow_subprocess=True)``, one child
+    process at each of two ``intra_op_threads``; each child reports the
+    thread counts it ran with."""
+    import torch
+
+    from repro_torch.tuning.kernel_objective import KernelTuneEvaluator, kernel_space
+
+    shape = SWEEP_SHAPES["rmsnorm"]
+    dims = {d["name"]: d["choices"] for d in kernel_space("rmsnorm", shape, host_knobs=True)
+            if d["name"].endswith("_threads")}
+    ev = KernelTuneEvaluator("rmsnorm", shape, warmup=1, iters=2, rel_halfwidth=0.5,
+                             device="cuda", allow_subprocess=True)
+    children = []
+    for n in HOST_THREADS:
+        value, meta = ev({"intra_op_threads": n})
+        threads = meta.get("threads", {})
+        children.append({"intra_op_threads": n, "value": value, "threads": threads,
+                         "child_seconds": meta.get("child_seconds"),
+                         "step_seconds": meta.get("step_seconds"), "error": meta.get("error")})
+        if not math.isfinite(value):
+            raise AssertionError(f"host_knobs: the child at {n} threads failed: {meta}")
+        if threads.get("intra_op_threads") != n or threads.get("OMP_NUM_THREADS") != str(n):
+            raise AssertionError(f"host_knobs: the child asked for {n} threads ran with {threads}")
+    info = torch.__config__.parallel_info()
+    emit({"phase": "host_knobs", "gpu": cx.smi, "kernel": "rmsnorm", "shape": shape,
+          "dtype": "f32", "choices": dims, "children": children,
+          "parent_threads": {"intra_op": torch.get_num_threads(),
+                             "inter_op": torch.get_num_interop_threads()},
+          "openmp_library": _openmp_library(),
+          "parallel_info": [line.strip() for line in info.splitlines() if line.strip()]})
+
+
 def kernels_line(cx):
     """The contract line: one entry per kernel, at the main path's shape and
     type.  The served kernels (bf16; the RMSNorm entry is the prefill one,
@@ -2206,7 +2442,9 @@ def kernels_line(cx):
     (f32, the sweep's type and shape) in the ``sweep`` phase, which is their
     path.  ``bo_launches`` counts each kernel's launches in the ``bo``
     phase; ``train_launches`` in the 12 steps of the ``train`` phase's main
-    run (K1 and K2 forward; the scans and decode are not on that path)."""
+    run (K1 and K2 forward; the scans and decode are not on that path);
+    ``family_launches`` in the ``families`` phase; ``paper_launches`` in the
+    ``paper`` phase, summed over its five workloads."""
     meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
@@ -2240,6 +2478,7 @@ def kernels_line(cx):
                     "bo_launches": cx.bo_launches[name],
                     "train_launches": cx.train_launches[name],
                     "family_launches": cx.family_launches[name],
+                    "paper_launches": cx.paper_launches[name],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
 
@@ -2248,7 +2487,7 @@ PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "parity": phase_parity, "serve": phase_serve, "train": phase_train,
           "tuning_db": phase_tuning_db,
           "sweep": phase_sweep, "bo": phase_bo, "service": phase_service,
-          "families": phase_families}
+          "families": phase_families, "paper": phase_paper, "host_knobs": phase_host_knobs}
 
 
 def main(argv=None):

@@ -27,15 +27,37 @@ are stricter than the kernels' wrappers:
   knob of the targeted kernel raises ``ValueError`` — a typo'd dim must
   never silently tune nothing.
 
-The reference's host-level knobs (``host_devices``, ``xla_flags``) and its
-fresh-subprocess harness are not ported yet (ROADMAP A6).
+Two measurement modes, as in the reference:
+
+* **in-process** (default) — the kernel runs through ``ops`` in this
+  process.
+* **subprocess** — for the *host-level* knobs, the paper's own Table 1
+  thread knobs as PyTorch spells them: ``intra_op_threads``
+  (``OMP_NUM_THREADS`` and ``torch.set_num_threads``) and
+  ``inter_op_threads`` (``torch.set_num_interop_threads``, which PyTorch
+  takes only before its first inter-op work).  A live process cannot
+  change them for good, so a point carrying one is measured by a fresh
+  ``python -m repro_torch.tuning.kernel_objective '<payload>'`` (an exec,
+  not a fork: CUDA initialises cleanly in the child) on the device the
+  parent measures on.  The child reports the thread counts it ran with,
+  so a knob that did not take shows in the meta.  ``KMP_BLOCKTIME`` is no
+  knob here: PyTorch's wheels run on GNU OpenMP, which does not read it.
+  The reference's host knobs (``host_devices``, ``xla_flags``) are XLA's.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
+import subprocess
+import sys
+import time
 from typing import Dict, Optional, Tuple
 
 from repro_torch.tuning.objective import Evaluator
+
+#: host-level knobs (subprocess-only; see module docstring)
+HOST_KNOBS = ("intra_op_threads", "inter_op_threads")
 
 
 def _pow2_choices(lo: int, hi: int) -> "list[int]":
@@ -319,13 +341,22 @@ KERNELS: Dict[str, KernelSpec] = {
 
 def kernel_space(kernel: str, shape: Optional[Dict[str, int]] = None,
                  *, host_knobs: bool = False) -> "list[dict]":
-    """SearchSpace dims for one kernel.  ``host_knobs=True`` (the
-    reference's subprocess-measured host knobs) is not ported yet."""
+    """SearchSpace dims for one kernel (optionally + host-level knobs).
+
+    ``host_knobs=True`` appends the thread knobs (choices up to the CPU
+    count, the reference's rule for ``host_devices``); those points require
+    an evaluator with ``allow_subprocess=True``.
+    """
+    dims = KERNELS[kernel].space(shape)
     if host_knobs:
-        raise NotImplementedError(
-            "host knobs and their fresh-subprocess harness are not ported yet "
-            "(ROADMAP.md, Queue A, A6)")
-    return KERNELS[kernel].space(shape)
+        ncpu = os.cpu_count() or 1
+        dims += [
+            {"name": "intra_op_threads", "type": "cat",
+             "choices": [n for n in (1, 2, 4, 8) if n <= ncpu] or [1]},
+            {"name": "inter_op_threads", "type": "cat",
+             "choices": [n for n in (1, 2, 4) if n <= ncpu] or [1]},
+        ]
+    return dims
 
 
 # ---------------------------------------------------------------------------
@@ -341,13 +372,18 @@ class KernelTuneEvaluator(Evaluator):
     full-fidelity call is byte-identical to a plain call (golden-trace
     contract).  Inputs are drawn on ``device`` from a ``torch.Generator``
     seeded 0, in float32 (the reference's builders' type).
+
+    Points carrying host knobs (``HOST_KNOBS``) are measured in a fresh
+    subprocess — iff ``allow_subprocess=True``; otherwise they raise,
+    because a live process cannot re-size its thread pools.
     """
 
     supports_fidelity = True
 
     def __init__(self, kernel: str, shape: Optional[Dict[str, int]] = None,
                  *, warmup: int = 1, iters: int = 3, adaptive: bool = True,
-                 rel_halfwidth: float = 0.2, device: str = "cuda"):
+                 rel_halfwidth: float = 0.2, device: str = "cuda",
+                 allow_subprocess: bool = False, timeout: float = 300.0):
         if kernel not in KERNELS:
             raise ValueError(
                 f"unknown kernel {kernel!r}; one of {sorted(KERNELS)}")
@@ -355,6 +391,10 @@ class KernelTuneEvaluator(Evaluator):
         self.spec = KERNELS[kernel]
         self.shape = dict(self.spec.shape if shape is None else shape)
         self.device = device
+        self.allow_subprocess = allow_subprocess
+        self.timeout = float(timeout)
+        self._harness = dict(warmup=warmup, iters=iters, adaptive=adaptive,
+                             rel_halfwidth=rel_halfwidth)
         from repro_torch.tuning.evaluator import WallClockEvaluator
 
         self._wall = WallClockEvaluator(
@@ -366,6 +406,17 @@ class KernelTuneEvaluator(Evaluator):
 
     def __call__(self, point: Dict,
                  fidelity: Optional[float] = None) -> Tuple[float, dict]:
+        host = {k: point[k] for k in HOST_KNOBS if k in point}
+        if host:
+            if not self.allow_subprocess:
+                raise ValueError(
+                    f"point carries host knobs {sorted(host)} but this "
+                    "evaluator was built with allow_subprocess=False — "
+                    "thread pools cannot be re-sized inside a live process; "
+                    "build KernelTuneEvaluator(..., allow_subprocess=True)")
+            tile = {k: v for k, v in point.items() if k not in HOST_KNOBS}
+            self.spec.config(tile)  # a typo'd key raises here, not in the child
+            return self._call_subprocess(tile, host, fidelity)
         if not self.spec.feasible(self.shape, point):  # raises on stray keys
             return -math.inf, {
                 "error": f"infeasible: {self.kernel} cannot launch "
@@ -378,3 +429,73 @@ class KernelTuneEvaluator(Evaluator):
         except Exception as e:  # a failed launch = failed run
             return -math.inf, {"error": f"{type(e).__name__}: {e}"}
         return value, dict(meta, kernel=self.kernel)
+
+    # -- subprocess harness (host knobs) -------------------------------------
+    def _call_subprocess(self, tile: Dict, host: Dict,
+                         fidelity: Optional[float]) -> Tuple[float, dict]:
+        payload = {"kernel": self.kernel, "shape": self.shape, "point": tile,
+                   "fidelity": fidelity, "device": self.device, "host": host,
+                   **self._harness}
+        env = dict(os.environ)
+        if "intra_op_threads" in host:
+            env["OMP_NUM_THREADS"] = str(int(host["intra_op_threads"]))
+        src = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tuning.kernel_objective",
+             json.dumps(payload)],
+            capture_output=True, text=True, env=env, timeout=self.timeout)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            return -math.inf, {"error": proc.stderr.strip()[-2000:],
+                               "kernel": self.kernel, "host": host,
+                               "child_seconds": wall}
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        return float(out["value"]), dict(out["meta"], host=host, child_seconds=wall)
+
+
+def _apply_host_knobs(host: Dict) -> Dict[str, object]:
+    """Set the thread knobs in this (fresh) process before any parallel
+    work, and report what PyTorch runs with afterwards."""
+    import torch
+
+    if "inter_op_threads" in host:  # only before the first inter-op work
+        torch.set_num_interop_threads(int(host["inter_op_threads"]))
+    if "intra_op_threads" in host:
+        torch.set_num_threads(int(host["intra_op_threads"]))
+    return {"intra_op_threads": torch.get_num_threads(),
+            "inter_op_threads": torch.get_num_interop_threads(),
+            "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS")}
+
+
+def main(argv=None) -> int:
+    """Subprocess entry: measure one payload, print one JSON line.
+
+    ``python -m repro_torch.tuning.kernel_objective '<payload json>'`` where
+    payload = {kernel, shape, point, fidelity, device, host, warmup, iters,
+    adaptive, rel_halfwidth}.  ``OMP_NUM_THREADS`` is the *caller's* job (set
+    in this process's environment before torch starts its pool); the
+    thread counts are set here first, before anything is measured, and the
+    counts PyTorch then reports go into the meta as ``threads``.
+    """
+    argv = sys.argv[1:] if argv is None else argv
+    payload = json.loads(argv[0])
+    threads = _apply_host_knobs(payload.get("host") or {})
+    ev = KernelTuneEvaluator(
+        payload["kernel"], payload.get("shape"),
+        warmup=int(payload.get("warmup", 1)),
+        iters=int(payload.get("iters", 3)),
+        adaptive=bool(payload.get("adaptive", True)),
+        rel_halfwidth=float(payload.get("rel_halfwidth", 0.2)),
+        device=payload.get("device", "cuda"),
+    )
+    value, meta = ev(payload.get("point") or {},
+                     fidelity=payload.get("fidelity"))
+    print(json.dumps({"value": value, "meta": dict(meta, threads=threads)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

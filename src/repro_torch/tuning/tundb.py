@@ -18,10 +18,14 @@ Records are keyed by ``(kernel, shape bucket, hardware fingerprint)``:
   far less shape-sensitive than the measurement cost of re-tuning every
   exact shape, and the kernels clamp tiles anyway;
 * **hardware fingerprint** — backend, device name, compute capability,
-  device count, PyTorch and CUDA versions, host (``hardware_fingerprint``).
-  A measurement taken on one machine must never silently configure
-  another: a fingerprint mismatch is a *miss*, and the caller falls back
-  to heuristic defaults.  The fingerprint has other fields than the
+  device count, PyTorch, CUDA and Triton versions, host, and a revision of
+  each kernel: a hash of its sources under ``repro_torch/kernels/`` (the
+  wrapper ``<name>.py`` and its ``csrc/<name>.cu``; ``hardware_fingerprint``).
+  A measurement taken on one machine, or of another build of a kernel, must
+  never silently configure this one: a fingerprint mismatch is a *miss*,
+  and the caller falls back to heuristic defaults.  A record's key holds
+  the revision of its own kernel only, so a redesign of one kernel leaves
+  the others' records standing.  The fingerprint has other fields than the
   reference package's, so a record written there never matches here.
 
 The record format, the bucketing rule and the keep-best rule are the
@@ -51,8 +55,11 @@ hashable.
 """
 from __future__ import annotations
 
+import hashlib
+import importlib.metadata
 import json
 import os
+import pathlib
 import platform
 import time
 from typing import Dict, Optional
@@ -70,6 +77,33 @@ def bucket_shape(dims: Dict[str, int]) -> Dict[str, int]:
     two; zero/negative dims pass through unchanged."""
     return {k: _pow2_up(v) if isinstance(v, int) and v > 0 else v
             for k, v in dims.items()}
+
+
+#: the tunable kernels, each ``kernels/<name>.py`` (+ ``kernels/csrc/<name>.cu``)
+KERNEL_NAMES = ("decode_attention", "flash_attention", "gla_scan", "rmsnorm", "ssm_scan")
+_KERNELS_DIR = pathlib.Path(__file__).resolve().parents[1] / "kernels"
+
+
+def kernel_revisions() -> Dict[str, str]:
+    """Per kernel, the first 16 hex digits of a SHA-256 over its wrapper's
+    source and its CUDA source (where it has one): what was measured."""
+    out = {}
+    for name in KERNEL_NAMES:
+        h = hashlib.sha256()
+        for path in (_KERNELS_DIR / f"{name}.py", _KERNELS_DIR / "csrc" / f"{name}.cu"):
+            if path.exists():
+                h.update(path.name.encode() + b"\0" + path.read_bytes())
+        out[name] = h.hexdigest()[:16]
+    return out
+
+
+def _triton_version() -> Optional[str]:
+    """The installed Triton's version (None without Triton), read from its
+    package metadata: nothing is imported."""
+    try:
+        return importlib.metadata.version("triton")
+    except importlib.metadata.PackageNotFoundError:
+        return None
 
 
 def hardware_fingerprint(device=None) -> Dict[str, object]:
@@ -91,8 +125,10 @@ def hardware_fingerprint(device=None) -> Dict[str, object]:
         "device_count": 1,
         "torch": str(torch.__version__),
         "cuda": torch.version.cuda,
+        "triton": _triton_version(),
         "machine": platform.machine(),
         "cpu_count": os.cpu_count() or 1,
+        "kernel_revisions": kernel_revisions(),
     }
     if backend == "cuda":
         major, minor = torch.cuda.get_device_capability(0)
@@ -133,9 +169,12 @@ class TuningDB:
         return len(self._cache)
 
     def _key(self, kernel: str, bucket: Dict[str, int]) -> str:
+        fp = self.fingerprint
+        revisions = fp.get("kernel_revisions")
+        if isinstance(revisions, dict):  # this kernel's revision only
+            fp = dict(fp, kernel_revisions=revisions.get(kernel))
         return json.dumps(
-            {"kernel": kernel, "bucket": bucket, "fp": self.fingerprint},
-            sort_keys=True)
+            {"kernel": kernel, "bucket": bucket, "fp": fp}, sort_keys=True)
 
     def refresh(self) -> None:
         """Re-read the backing store (merge records other writers added).

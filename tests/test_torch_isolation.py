@@ -29,6 +29,14 @@ print("clean", len({names!r}))
 """
 
 
+#: the paper's experiment (workloads, Fig. 5 / Fig. 6 / Table 2, the
+#: quickstart) and the host-knob child's module
+PAPER_MODULES = ("repro_torch.benchmarks.workloads", "repro_torch.benchmarks.fig5_tuning_curves",
+                 "repro_torch.benchmarks.fig6_exhaustive",
+                 "repro_torch.benchmarks.table2_exploration",
+                 "repro_torch.examples.quickstart", "repro_torch.tuning.kernel_objective")
+
+
 def _probe(names):
     code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT), names=names)
     return subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -62,7 +70,8 @@ def test_port_has_the_expected_modules():
                  "repro_torch.optim.optimizer", "repro_torch.data.pipeline",
                  "repro_torch.runtime.fault_tolerance", "repro_torch.train.train_step",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
-                 "repro_torch.models.layers", "repro_torch.models.encdec"):
+                 "repro_torch.models.layers", "repro_torch.models.encdec",
+                 *PAPER_MODULES):
         assert must in MODULES
 
 
@@ -72,6 +81,13 @@ def test_every_port_module_imports_without_jax_or_reference():
                             "repro_torch.core", "repro_torch.tuning.schedulers"])
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+@pytest.mark.parametrize("name", PAPER_MODULES)
+def test_paper_module_imports_without_jax_or_reference(name):
+    out = _probe([name])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean 1"
 
 
 def test_chip_smoke_imports_without_jax_or_reference_and_does_no_work():

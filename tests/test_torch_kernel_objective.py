@@ -52,8 +52,13 @@ def test_registry_spaces_equal_the_reference(name, width):
 
 
 def test_host_knobs_wait_for_a6():
-    with pytest.raises(NotImplementedError, match="A6"):
-        kernel_space("rmsnorm", host_knobs=True)
+    """A6's host knobs are ported: the thread knobs follow the tile knobs,
+    and a point carrying one needs the subprocess harness."""
+    dims = kernel_space("rmsnorm", host_knobs=True)
+    assert dims[:-2] == kernel_space("rmsnorm")
+    assert [d["name"] for d in dims[-2:]] == ["intra_op_threads", "inter_op_threads"]
+    with pytest.raises(ValueError, match="allow_subprocess"):
+        KernelTuneEvaluator("rmsnorm", device="cpu")({"intra_op_threads": 1})
 
 
 def test_evaluator_measures_and_reports_meta():

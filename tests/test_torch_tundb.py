@@ -88,7 +88,7 @@ def test_default_fingerprints_never_meet(tmp_path):
     fp, rfp = hardware_fingerprint("cpu"), ref_fingerprint()
     assert fp != rfp
     assert {"backend", "device_kind", "compute_capability", "device_count",
-            "torch", "cuda", "machine", "cpu_count"} == set(fp)
+            "torch", "cuda", "triton", "machine", "cpu_count", "kernel_revisions"} == set(fp)
     assert fp["backend"] == "cpu" and fp["torch"] == str(torch.__version__)
     # a record taken by the reference never configures the port, nor the reverse
     path = str(tmp_path / "shared.json")
