@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases env,build,bo,service
     python3 chip_smoke.py --phases env,build,families
     python3 chip_smoke.py --phases env,build,train,paper,host_knobs
+    python3 chip_smoke.py --phases env,build,roofline
 
 Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
@@ -36,7 +37,13 @@ throughput of ``dense_lm`` (qwen2-0.5b at full width and depth) through
 (qwen3-MoE and RWKV-6 at full width, depth cut; the convnet and NCF at the
 reference's sizes).  The ``host_knobs`` phase measures K1 in fresh child
 processes at two thread counts (``KernelTuneEvaluator(allow_subprocess=
-True)``).  Each phase prints JSON lines; any failure
+True)``).  The ``roofline`` phase runs the dry run for one card
+(``repro_torch.launch.dryrun``: qwen2-0.5b traced on ``meta`` tensors) and
+the tuning CLI over it (``repro_torch.launch.tune``, BO and GA), measures
+the card's copy and matmul rates beside the data sheet's, and runs three
+steps of qwen2-0.5b on the card beside their dry runs: peak bytes against
+``max_memory_allocated``, step seconds against the roofline's estimate.
+Each phase prints JSON lines; any failure
 ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -194,6 +201,21 @@ PAPER_STEP_RTOL = 0.15   # its step time against the train phase's median step
 PAPER_LOSS_RTOL = 1e-4   # its loss on the kernel path against the oracle path
 # host knobs: K1 at its sweep shape in a child process a thread count
 HOST_THREADS = (1, 8)
+
+# the roofline phase: qwen2-0.5b's dry runs for one card, the tuning CLI over
+# them, and three of its steps measured on the card beside their dry runs
+ROOFLINE_ARCH = "qwen2-0.5b"
+ROOFLINE_POINTS = {"mb16_dots_bq256": {"microbatches": 16, "remat": "dots", "block_q": 256},
+                   "mb4_none_bq1024": {"microbatches": 4, "remat": "none", "block_q": 1024,
+                                       "block_kv": 1024}}
+ROOFLINE_BUDGET = 8
+ROOFLINE_CHECKS = (("train", 8, 512), ("prefill", 8, 512), ("decode", 128, 32768))
+ROOFLINE_MEM_BAND = (0.8, 1.25)  # the dry run's peak bytes over max_memory_allocated
+ROOFLINE_STEPS = 5               # timed steps a check point (median)
+ROOFLINE_LOSS_RTOL = 1e-2        # bf16 train loss, kernel path against the chunked path
+ROOFLINE_LOGIT_ULPS = 8          # bf16 logits, kernel path against the chunked path
+COPY_BYTES = 2 << 30             # device-to-device copy of 2 GiB
+MATMUL_N = 8192                  # bf16 matmul of 8192^3
 
 
 def emit(obj):
@@ -2444,7 +2466,8 @@ def kernels_line(cx):
     phase; ``train_launches`` in the 12 steps of the ``train`` phase's main
     run (K1 and K2 forward; the scans and decode are not on that path);
     ``family_launches`` in the ``families`` phase; ``paper_launches`` in the
-    ``paper`` phase, summed over its five workloads."""
+    ``paper`` phase, summed over its five workloads; ``roofline_launches``
+    in the ``roofline`` phase's three steps on the kernel path."""
     meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
@@ -2479,15 +2502,251 @@ def kernels_line(cx):
                     "train_launches": cx.train_launches[name],
                     "family_launches": cx.family_launches[name],
                     "paper_launches": cx.paper_launches[name],
+                    "roofline_launches": cx.roofline_launches[name],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
+
+
+def _event_seconds(fn, reps):
+    """Seconds of one ``fn()`` on the card: CUDA events around ``reps``
+    calls after two untimed ones."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / 1e3 / reps
+
+
+def _tune_run(tmp, algo, tag):
+    """``python -m repro_torch.launch.tune`` on qwen2-0.5b / train_4k, started
+    in the background: (process, its command, its history path)."""
+    hist = os.path.join(tmp, f"{tag}.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.tune", "--arch", ROOFLINE_ARCH,
+           "--shape", "train_4k", "--algo", algo, "--budget", str(ROOFLINE_BUDGET),
+           "--memo-cache", os.path.join(tmp, f"{algo}.memo.json"), "--out", hist]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, cwd=HERE)
+    return proc, cmd, hist, time.perf_counter()
+
+
+def _tune_result(run):
+    """Wait for a tuning run; its evaluations, -inf count and best point."""
+    proc, cmd, hist, t0 = run
+    log, _ = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"roofline: {' '.join(cmd[2:])} exited {proc.returncode}:\n"
+                             + log[-3000:])
+    with open(hist) as f:
+        evals = json.load(f)
+    finite = [e for e in evals if math.isfinite(e["value"])]
+    best = max(finite, key=lambda e: e["value"]) if finite else None
+    return {"command": " ".join(["python"] + cmd[1:]), "seconds": secs,
+            "evaluations": len(evals),
+            "evaluated": sum(1 for e in evals if not e["meta"].get("memoized")),
+            "minus_inf": len(evals) - len(finite),
+            "oom": sum(1 for e in evals if e["meta"].get("oom")),
+            "best_point": best and best["point"], "best_tok_s": best and best["value"],
+            "points": [[e["point"], e["value"], e["meta"].get("mem_per_device_B")]
+                       for e in evals]}
+
+
+def _roofline_row(rec):
+    r = rec["roofline"]
+    return {k: r[k] for k in ("compute_s", "memory_s", "collective_s", "bottleneck",
+                              "est_step_s", "throughput_tok_s", "mfu", "useful_flops_ratio",
+                              "fits_hbm", "memory_s_hlo_raw", "kernel_credit_GB")}
+
+
+def phase_roofline(cx):
+    """The roofline path for one card (``repro_torch.launch.dryrun``,
+    ``repro_torch.launch.tune``), checked against the card.  (1) The card's
+    memory, copy rate and bf16 matmul rate beside the data sheet's figures
+    the cost model keeps.  (2) Dry runs of qwen2-0.5b: train_4k at BASELINE
+    and two other points, decode_32k.  (3) The tuning CLI, BO and GA at
+    budget 8 on train_4k (started first, in the background: a dry run needs
+    no card), then BO again from its memo cache, which must evaluate
+    nothing.  (4) Three steps at full width and depth, bf16 as BASELINE
+    says, each analysed by the dry run and then run on the card: its peak
+    bytes on the chunked path that was traced against
+    ``max_memory_allocated`` (ratio within ROOFLINE_MEM_BAND), and its
+    median step on the kernel path against the roofline's estimate, with
+    K1 / K2 / K3 launched where the path has them and its output held
+    against the chunked path's."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_roofline_")
+    tuning = {"bo": _tune_run(tmp, "bo", "bo"), "ga": _tune_run(tmp, "ga", "ga")}
+    try:
+        _roofline_body(cx, tmp, tuning, t_phase)
+    finally:  # a failure leaves no tuning run behind
+        for proc, *_ in tuning.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _roofline_body(cx, tmp, tuning, t_phase):
+    import dataclasses
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.tuning import cost_model
+    from repro_torch.tuning.parameters import BASELINE
+
+    # -- (1) the card beside the data sheet --------------------------------------
+    cx.model = cx.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    props = torch.cuda.get_device_properties(0)
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_s = _event_seconds(lambda: dst.copy_(src), reps=10)
+    del src, dst
+    a = torch.randn(MATMUL_N, MATMUL_N, dtype=torch.bfloat16, device="cuda")
+    b = torch.randn(MATMUL_N, MATMUL_N, dtype=torch.bfloat16, device="cuda")
+    mm_s = _event_seconds(lambda: torch.matmul(a, b), reps=10)
+    del a, b
+    torch.cuda.empty_cache()
+    copy_rate, mm_rate = 2 * COPY_BYTES / copy_s, 2 * MATMUL_N ** 3 / mm_s
+    emit({"phase": "roofline", "part": "card", "gpu": cx.smi,
+          "total_memory_B": props.total_memory, "data_sheet_hbm_B": cost_model.HBM_BYTES,
+          "copy_GiB": COPY_BYTES / 2 ** 30, "copy_s": copy_s, "copy_B_per_s": copy_rate,
+          "data_sheet_B_per_s": cost_model.HBM_BW, "copy_share": copy_rate / cost_model.HBM_BW,
+          "matmul_n": MATMUL_N, "matmul_s": mm_s, "matmul_bf16_flop_per_s": mm_rate,
+          "data_sheet_bf16_flop_per_s": cost_model.PEAK_FLOPS_BF16,
+          "matmul_share": mm_rate / cost_model.PEAK_FLOPS_BF16})
+
+    # -- (2) dry runs --------------------------------------------------------------
+    dry = []
+    for shape_name, label, point in (("train_4k", "baseline", {}),
+                                     *(("train_4k", k, v) for k, v in ROOFLINE_POINTS.items()),
+                                     ("decode_32k", "baseline", {})):
+        rec = dryrun.analyze_cell(ROOFLINE_ARCH, shape_name, bc=BASELINE.replace(**point))
+        row = {"phase": "roofline", "part": "dryrun", "arch": ROOFLINE_ARCH, "shape": shape_name,
+               "point": label, "backend": point, "roofline": _roofline_row(rec),
+               "per_device_B": rec["memory"]["per_device_B"], "memory": rec["memory"],
+               "flops": rec["cost"]["flops_per_device"], "ops": rec["cost"]["ops"],
+               "trace_seconds": rec["compile_seconds"]}
+        if not (rec["roofline"]["est_step_s"] > 0 and rec["memory"]["per_device_B"] > 0):
+            raise AssertionError(f"roofline: dry run {shape_name}/{label}: {row}")
+        dry.append(row)
+        emit(row)
+
+    # -- (3) the tuning CLI ----------------------------------------------------------
+    tuned = {algo: _tune_result(run) for algo, run in tuning.items()}
+    rerun = _tune_result(_tune_run(tmp, "bo", "bo_again"))
+    if rerun["evaluated"] != 0 or rerun["evaluations"] != tuned["bo"]["evaluations"]:
+        raise AssertionError(f"roofline: the BO re-run evaluated {rerun['evaluated']} points")
+    for algo, res in (*tuned.items(), ("bo_again", rerun)):
+        if res["evaluations"] < ROOFLINE_BUDGET - 1:
+            raise AssertionError(f"roofline: {algo} ran {res['evaluations']} points")
+        emit({"phase": "roofline", "part": "tune", "algo": algo, **res})
+
+    # -- (4) dry run against the card ---------------------------------------------------
+    cfg = get_config(ROOFLINE_ARCH)
+    mods = _kernel_wrappers()
+    total = {k: 0 for k in mods}
+    kernel_rt = dataclasses.replace(BASELINE.runtime(), attn_impl="cuda", scan_impl="cuda")
+    checks = []
+    for kind, B, S in ROOFLINE_CHECKS:
+        shape = ShapeConfig(f"{kind}_{B}x{S}", S, B, kind)
+        rec = dryrun.analyze(cfg, shape, BASELINE)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        step, args = dryrun.build_cell(cfg, shape, BASELINE, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*args)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base
+        want = (out[2]["loss_out"].float() if kind == "train" else out[0].float()).clone()
+        del out
+        gc.collect()
+        ratio = rec["memory"]["per_device_B"] / measured
+
+        step_k = dryrun.cell_step(cfg, shape, BASELINE, kernel_rt)
+        _zero_counts(mods)
+        times, got = [], None
+        for i in range(ROOFLINE_STEPS + 1):  # the first is the warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_k(*args)
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t0)
+            got = (out[2]["loss_out"].float() if kind == "train" else out[0].float()).clone()
+            del out
+        launched = _counts(mods)
+        _add_counts(total, launched)
+        del args, step, step_k
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        median = statistics.median(times)
+        est = rec["roofline"]["est_step_s"]
+        if not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+            raise AssertionError(f"roofline {kind}: output {tuple(got.shape)} not finite")
+        if kind == "train":
+            err = float(abs(got - want) / abs(want))
+            tol = ROOFLINE_LOSS_RTOL
+        else:
+            absmax = float(want.abs().max())
+            err = float((got - want).abs().max())
+            tol = ROOFLINE_LOGIT_ULPS * 2.0 ** (math.floor(math.log2(absmax)) - 7)
+        row = {"phase": "roofline", "part": "check", "gpu": cx.smi, "kind": kind, "B": B, "S": S,
+               "dtype": BASELINE.compute_dtype, "per_device_B": rec["memory"]["per_device_B"],
+               "memory": rec["memory"], "max_memory_allocated_B": measured, "mem_ratio": ratio,
+               "mem_band": ROOFLINE_MEM_BAND, "est_step_s": est,
+               "bottleneck": rec["roofline"]["bottleneck"], "roofline": _roofline_row(rec),
+               "median_step_s": median, "step_s": times, "step_ratio": median / est,
+               "launches": launched, "trace_seconds": rec["compile_seconds"],
+               "kernels_vs_chunked": err, "tolerance": tol}
+        checks.append(row)
+        emit(row)
+        if not ROOFLINE_MEM_BAND[0] <= ratio <= ROOFLINE_MEM_BAND[1]:
+            raise AssertionError(f"roofline {kind}: dry-run peak {rec['memory']['per_device_B']:.4g}"
+                                 f" B over the card's {measured:.4g} B is {ratio:.3f}")
+        needed = ["rmsnorm", "decode_attention" if kind == "decode" else "flash_attention"]
+        for name in needed:
+            if launched[name] <= 0:
+                raise AssertionError(f"roofline {kind}: {name} was not launched")
+        if err > tol:
+            raise AssertionError(f"roofline {kind}: kernel path {err:.3e} from the chunked "
+                                 f"path (tolerance {tol:.3e})")
+    cx.roofline_launches = total
+    emit({"phase": "roofline", "part": "done", "gpu": cx.smi, "roofline_launches": total,
+          "seconds": round(time.perf_counter() - t_phase, 1),
+          "tune_seconds": {k: round(v["seconds"], 1) for k, v in tuned.items()},
+          "mem_ratios": {c["kind"]: c["mem_ratio"] for c in checks},
+          "step_ratios": {c["kind"]: c["step_ratio"] for c in checks}})
 
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "parity": phase_parity, "serve": phase_serve, "train": phase_train,
           "tuning_db": phase_tuning_db,
           "sweep": phase_sweep, "bo": phase_bo, "service": phase_service,
-          "families": phase_families, "paper": phase_paper, "host_knobs": phase_host_knobs}
+          "families": phase_families, "paper": phase_paper, "host_knobs": phase_host_knobs,
+          "roofline": phase_roofline}
 
 
 def main(argv=None):

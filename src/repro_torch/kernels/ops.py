@@ -11,6 +11,12 @@ Kernel forward passes pair with an oracle-recompute backward
 (``_ref_vjp``): the standard remat-style pairing that keeps the graph
 differentiable while the forward hot-spot runs the hand-written kernel.
 
+The oracle forms of the four kernelised regions run as the trace regions
+``krnl_flash_attn``, ``krnl_decode_attn``, ``krnl_ssm_scan`` and
+``krnl_gla_scan`` (``runtime/trace_hooks.py``), as the reference wraps them
+in ``named_scope``: the dry run credits them at the kernels' stream traffic.
+Outside a trace a region is the plain call.
+
 Eager PyTorch has no trace time, so ``_tuned`` is reached on every call.
 The resolved config is memoised per ``(db, kernel, dims, defaults)``: the
 steady-state cost is one dict lookup and the DB is consulted once per
@@ -33,6 +39,7 @@ from repro_torch.kernels import gla_scan as _gla_mod
 from repro_torch.kernels import rmsnorm as _rms_mod
 from repro_torch.kernels import ssm_scan as _ssm_mod
 from repro_torch.kernels import ref
+from repro_torch.runtime import trace_hooks
 
 _VALID_IMPLS = ("ref", "cuda", "chunked")
 
@@ -142,10 +149,10 @@ def attention(
                {"block_q": block_q, "block_kv": block_kv})
     block_q, block_kv = t["block_q"], t["block_kv"]
     if impl == "chunked":
-        return ref.attention_chunked_ref(
-            q, k, v, causal=causal, window=window, scale=scale,
-            block_q=block_q, unroll=unroll, prune=prune,
-        )
+        return trace_hooks.region("krnl_flash_attn", functools.partial(
+            ref.attention_chunked_ref, causal=causal, window=window,
+            scale=scale, block_q=block_q, unroll=unroll, prune=prune,
+        ), q, k, v)
     kernel_fn = functools.partial(
         _flash_mod.flash_attention, causal=causal, window=window, scale=scale,
         block_q=block_q, block_kv=block_kv,
@@ -171,7 +178,8 @@ def decode_attention(
     may be bf16 under an fp32 query."""
     _check_impl(impl)
     if impl in ("ref", "chunked"):
-        return ref.decode_attention_ref(q, k, v, lengths, scale=scale)
+        return trace_hooks.region("krnl_decode_attn", functools.partial(
+            ref.decode_attention_ref, scale=scale), q, k, v, lengths)
     B, H, dh = q.shape
     _, Smax, K, _ = k.shape
     block_kv = _tuned(db, "decode_attention",
@@ -237,7 +245,9 @@ def ssm_scan(
                {"chunk": chunk, "block_d": block_d})
     chunk, block_d = t["chunk"], t["block_d"]
     if impl == "chunked":
-        return ref.ssm_scan_chunked_ref(x, dt, A, B_in, C_in, D_skip, chunk=chunk)[0]
+        return trace_hooks.region(
+            "krnl_ssm_scan", lambda *a: ref.ssm_scan_chunked_ref(*a, chunk=chunk)[0],
+            x, dt, A, B_in, C_in, D_skip)
     kernel_fn = functools.partial(_ssm_mod.ssm_scan, chunk=chunk, block_d=block_d)
     ref_fn = lambda *a: ref.ssm_scan_chunked_ref(*a, chunk=chunk)[0]
     return _ref_vjp(kernel_fn, ref_fn)(x, dt, A, B_in, C_in, D_skip)
@@ -263,7 +273,9 @@ def gla_scan(
                    {"B": B, "S": S, "H": H, "dk": dk, "dv": v.shape[-1]},
                    {"chunk": chunk})["chunk"]
     if impl == "chunked":
-        return ref.gla_scan_chunked_ref(r, k, v, w, u, chunk=chunk)[0]
+        return trace_hooks.region(
+            "krnl_gla_scan", lambda *a: ref.gla_scan_chunked_ref(*a, chunk=chunk)[0],
+            r, k, v, w, u)
     kernel_fn = functools.partial(_gla_mod.gla_scan, chunk=chunk)
     ref_fn = lambda *a: ref.gla_scan_chunked_ref(*a, chunk=chunk)[0]
     return _ref_vjp(kernel_fn, ref_fn)(r, k, v, w, u)

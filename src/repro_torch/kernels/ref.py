@@ -147,12 +147,28 @@ def decode_attention_ref(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """The cache may be stored narrower than the query (bf16 cache, f32
-    query): it is widened to ``q.dtype`` first, which is exact."""
-    out = attention_ref(
-        q[:, None], k.to(q.dtype), v.to(q.dtype), causal=False, scale=scale,
-        kv_length=lengths,
-    )
-    return out[:, 0]
+    query): it is widened to ``q.dtype`` first, which is exact.
+
+    ``attention_ref`` of the one query token, with the query heads grouped
+    by KV head instead of the cache repeated to every query head: the same
+    products and sums, without an H/K-fold copy of the cache (at a 32k
+    cache of batch 128 that copy would be 7.5 GB a layer in bf16)."""
+    B, H, dh = q.shape
+    _, Smax, K, dv = v.shape
+    G = H // K
+    scale = scale if scale is not None else dh ** -0.5
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", q.float().reshape(B, K, G, dh),
+                     k.float()) * scale
+    mask = (torch.arange(Smax, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype), v)
+    return out.reshape(B, H, dv).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

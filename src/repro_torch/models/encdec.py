@@ -25,8 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.lm import cast_tree
-from repro_torch.models.params import (P, dense_init, stack_layer_params, tree_leaves,
-                                      tree_map, zeros_init)
+from repro_torch.models.params import (P, dense_init, stack_layer_params, stack_zeros,
+                                      tree_leaves, tree_map, zeros_init)
 from repro_torch.models.runtime import Runtime
 
 
@@ -222,15 +222,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dic
     whisper-base)."""
     h, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     axes = ("batch", "cache_seq", "kv_heads", "head")
-    per = []
-    for _ in range(cfg.num_layers):
-        per.append({
-            "self": L.init_attention_cache(cfg, batch, cache_len, device=device),
-            "cross": {
-                "k": zeros_init((batch, cfg.encoder_seq_len, h, dh), axes,
-                                dtype=torch.bfloat16, device=device),
-                "v": zeros_init((batch, cfg.encoder_seq_len, h, dh), axes,
-                                dtype=torch.bfloat16, device=device),
-            },
-        })
-    return {"pos": P(0, ()), "layers": stack_layer_params(per)}
+    layer = {  # one layer's zeros, as stand-ins
+        "self": L.init_attention_cache(cfg, batch, cache_len, device="meta"),
+        "cross": {
+            "k": zeros_init((batch, cfg.encoder_seq_len, h, dh), axes,
+                            dtype=torch.bfloat16, device="meta"),
+            "v": zeros_init((batch, cfg.encoder_seq_len, h, dh), axes,
+                            dtype=torch.bfloat16, device="meta"),
+        },
+    }
+    return {"pos": P(0, ()), "layers": stack_zeros(layer, cfg.num_layers, device)}

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gla_scan_chunked_ref, ssm_scan_chunked_ref
 from repro_torch.models.params import P, dense_init, ones_init, zeros_init
@@ -42,11 +43,6 @@ def _dt(x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """Cast to the compute dtype; a no-op for a tree that was cast once
     (launch/serve.py does that), so no per-step copy of a weight is made."""
     return x.to(rt.dtype())
-
-
-def shard_hint(x, axes):
-    """One card: a sharding hint is the identity."""
-    return x
 
 
 # ---------------------------------------------------------------------------
@@ -99,18 +95,28 @@ def rope_tables(positions: torch.Tensor, dh: int, theta: float):
     return cos[:, :, None, :], sin[:, :, None, :]
 
 
-@functools.lru_cache(maxsize=8)
 def _rope_tables_at(first: int, count: int, batch: int, dh: int, theta: float,
                     device: torch.device):
     """Tables for positions ``first .. first+count-1`` (``batch == 0``: shared
     by the batch, as in prefill) or for every sequence at ``first`` (decode).
     Every layer of a step asks for the same tables; eager PyTorch would
-    otherwise recompute them, a dozen small launches each time."""
+    otherwise recompute them, a dozen small launches each time.  Stand-ins
+    on ``meta`` (the dry run's trace) are not cached, so that a trace does
+    not depend on what was traced before it or beside it."""
+    if device.type == "meta":
+        return _rope_tables_uncached(first, count, batch, dh, theta, device)
+    return _rope_tables_cached(first, count, batch, dh, theta, device)
+
+
+def _rope_tables_uncached(first, count, batch, dh, theta, device):
     if batch:
         positions = torch.full((batch, 1), first, device=device)
     else:
         positions = torch.arange(first, first + count, device=device)
     return rope_tables(positions, dh, theta)
+
+
+_rope_tables_cached = functools.lru_cache(maxsize=8)(_rope_tables_uncached)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,

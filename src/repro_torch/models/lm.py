@@ -31,9 +31,9 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.params import P, dense_init, stack_layer_params, tree_map
+from repro_torch.models.params import P, dense_init, stack_layer_params, stack_zeros, tree_map
 from repro_torch.models.runtime import Runtime
-from repro_torch.models.layers import shard_hint
+from repro_torch.distributed.sharding import shard_hint
 
 MIXER_INIT = {
     "attn": L.init_attention,
@@ -52,6 +52,8 @@ def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
 
 
 _checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+# its meta result, for the dry run's trace on meta tensors
+_checkpoint_name.register_fake(lambda x, name: torch.empty_like(x))
 
 
 def checkpoint_name(x: torch.Tensor, name: str, mark: bool) -> torch.Tensor:
@@ -290,20 +292,19 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dic
     period = cfg.layer_period()
     n_periods = cfg.num_layers // period
 
-    def cache_for(mixer_kind):
+    def cache_for(mixer_kind):  # one layer's zeros, as stand-ins
         if mixer_kind == "attn":
-            return {"mixer": L.init_attention_cache(cfg, batch, cache_len, device=device)}
+            return {"mixer": L.init_attention_cache(cfg, batch, cache_len, device="meta")}
         if mixer_kind == "mla":
-            return {"mixer": L.init_mla_cache(cfg, batch, cache_len, device=device)}
+            return {"mixer": L.init_mla_cache(cfg, batch, cache_len, device="meta")}
         if mixer_kind == "mamba":
-            return {"mixer": L.init_mamba_cache(cfg, batch, device=device)}
-        rc = L.init_rwkv_cache(cfg, batch, device=device)
+            return {"mixer": L.init_mamba_cache(cfg, batch, device="meta")}
+        rc = L.init_rwkv_cache(cfg, batch, device="meta")
         return {"mixer": {"x_tmix": rc["x_tmix"], "S": rc["S"]},
                 "mlp": {"x_cmix": rc["x_cmix"]}}
 
     layer_caches = {}
     for pos_i in range(period):
         mixer_kind, _ = plan[pos_i]
-        per = [cache_for(mixer_kind) for _ in range(n_periods)]
-        layer_caches[f"pos{pos_i}"] = stack_layer_params(per)
+        layer_caches[f"pos{pos_i}"] = stack_zeros(cache_for(mixer_kind), n_periods, device)
     return {"pos": P(0, ()), "layers": layer_caches}

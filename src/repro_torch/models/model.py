@@ -1,7 +1,7 @@
 """Model facade: one object per architecture config.
 
 Wraps the family-specific init/apply/cache functions behind a uniform
-interface used by the server (and later the trainer, benchmarks and tuner):
+interface used by the trainer, server, dry run, benchmarks and tuner:
 
     model = build_model(get_config("qwen2-0.5b"))
     params = model.init(gen)                      # P-tree, on gen.device
@@ -9,17 +9,31 @@ interface used by the server (and later the trainer, benchmarks and tuner):
     cache = model.init_cache(batch=8, cache_len=1024, device=dev)
     logits, cache = model.decode_step(values, tok, cache_values, rt=rt)
 
-``input_specs`` (shape stand-ins for the dry run) follows with its slice.
+``input_specs(shape)`` returns the shape, dtype and logical axes of every
+model input — the dry run traces against stand-ins made from them,
+allocating nothing.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, lm
 from repro_torch.models.runtime import Runtime
+
+
+@dataclass(frozen=True)
+class InputSpec:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    logical_axes: Tuple[Optional[str], ...]
+
+    def make(self, device) -> torch.Tensor:
+        """Zeros of this spec on ``device`` (``"meta"``: a stand-in)."""
+        return torch.zeros(self.shape, dtype=self.dtype, device=device)
 
 
 class Model:
@@ -65,6 +79,27 @@ class Model:
         if self.is_encdec:
             return encdec.decode_step(params, tokens, cache, cfg=self.cfg, rt=rt)
         return lm.decode_step(params, tokens, cache, cfg=self.cfg, rt=rt)
+
+    # -- shape stand-ins ----------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, InputSpec]:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        specs: Dict[str, InputSpec] = {}
+        if shape.kind == "decode":
+            specs["tokens"] = InputSpec((B, 1), torch.int32, ("batch", None))
+        else:
+            specs["tokens"] = InputSpec((B, S), torch.int32, ("batch", None))
+        if shape.kind == "train":
+            specs["targets"] = InputSpec((B, S), torch.int32, ("batch", None))
+        if cfg.family == "vlm" and shape.kind != "decode":
+            specs["image_embeds"] = InputSpec(
+                (B, cfg.num_frontend_tokens, cfg.d_model), torch.bfloat16,
+                ("batch", None, None))
+        if self.is_encdec and shape.kind != "decode":
+            specs["encoder_embeds"] = InputSpec(
+                (B, cfg.encoder_seq_len, cfg.d_model), torch.bfloat16,
+                ("batch", None, None))
+        return specs
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -89,3 +89,15 @@ def stack_layer_params(per_layer_trees):
 
     return tree_map(stack, per_layer_trees[0], *per_layer_trees[1:],
                     is_leaf=is_p)
+
+
+def stack_zeros(tree, n: int, device=None):
+    """The stack of ``n`` copies of a P-tree of zeros (a cache's layer),
+    allocated at once on ``device``: stacking ``n`` drawn trees would hold
+    the layers twice (a 32k cache of batch 128 is 51.5 GB)."""
+    def stack(p):
+        v = p.value
+        return P(torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=device),
+                 ("layers",) + p.axes)
+
+    return tree_map(stack, tree, is_leaf=is_p)

@@ -126,3 +126,21 @@ def adamw_update(
     pick = lambda i: tree_map(lambda o: o[i], out)
     metrics = {"lr": lr, "grad_norm": gnorm, "clip": clip}
     return pick(0), {"m": pick(1), "v": pick(2), "count": count}, metrics
+
+
+def optimizer_state_axes(params_axes, cfg: OptimizerConfig, params_values):
+    """Logical axes tree for the optimizer state (mirrors the params)."""
+
+    def v_axes(axes, p):
+        if cfg.factored and _is_factorable(p):
+            return {"row": axes[:-1], "col": axes[:-2] + axes[-1:]}
+        return axes
+
+    is_axes = lambda x: isinstance(x, tuple) and all(
+        isinstance(a, (str, type(None))) for a in x
+    )
+    return {
+        "m": params_axes,
+        "v": tree_map(v_axes, params_axes, params_values, is_leaf=is_axes),
+        "count": (),
+    }

@@ -3,7 +3,9 @@
 ``microbatches`` (the paper's ``batch_size`` analogue in the tuning space)
 splits the per-step batch into k sequential microbatches, a python loop
 where the reference scans; gradients accumulate in fp32 and are divided by
-k once, after the loop.
+k once, after the loop.  Each microbatch's forward and backward is one
+``trace_hooks.repeat`` call, so that the dry run traces two microbatches
+whatever their number.
 
 The forward runs the hand-written kernels where the runtime selects them
 (``attn_impl="cuda"``); each kernel's backward recomputes through its
@@ -21,6 +23,7 @@ from repro_torch.models.model import Model
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim.optimizer import OptimizerConfig, adamw_update
+from repro_torch.runtime import trace_hooks
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -84,8 +87,8 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, rt: Runtime,
                                                    device=p.device), params)
             outs = []
             for i in range(microbatches):
-                out, g = value_and_grad(loss_fn, params,
-                                        {k: v[i] for k, v in mb.items()})
+                out, g = trace_hooks.repeat(value_and_grad, loss_fn, params,
+                                            {k: v[i] for k, v in mb.items()})
                 grads = tree_map(lambda a, b: a + b.to(torch.float32), grads, g)
                 outs.append(out)
             grads = tree_map(lambda g: g / microbatches, grads)

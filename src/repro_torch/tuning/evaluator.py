@@ -3,29 +3,42 @@
 * ``WallClockEvaluator`` — the paper-faithful measurement path: apply the
   configuration, run the step on the local device, report measured
   throughput (examples- or tokens-/second).
+* ``RooflineEvaluator`` — the device-free path: trace the cell's step for
+  one card with the candidate configuration (``launch/dryrun.py``) and
+  report the roofline-estimated throughput (tokens/second).  A
+  configuration whose peak bytes exceed the card's HBM is a *failed run*
+  (-inf), exactly like a crashed measurement in the paper's harness.
+  ``cache_path`` persists every analysis through the shared
+  :class:`~repro_torch.tuning.cache.JsonCacheStore` (atomic writes,
+  cross-process file locking), so concurrent tuning runs merge their
+  analyses instead of clobbering each other; its keys are the reference's.
 
-It implements the explicit evaluator protocol
+Both implement the explicit evaluator protocol
 (``repro_torch.tuning.objective.Evaluator``): ``__call__(point) -> (value,
 meta)``, declared via ``returns_meta = True`` so the tuner/executor never
-have to sniff return types, and opts into the **fidelity** protocol
-(``supports_fidelity``) for multi-fidelity tuning by scaling its
-variance-adaptive timing loop; a full-fidelity request takes exactly the
-same code path as a plain no-fidelity call.
+have to sniff return types.  Both also opt into the **fidelity** protocol
+(``supports_fidelity``) for multi-fidelity tuning: ``WallClockEvaluator``
+scales its variance-adaptive timing loop, ``RooflineEvaluator`` drops to
+the fast (1- and 2-period, extrapolated) trace; in both, a full-fidelity
+request takes exactly the same code path as a plain no-fidelity call.
 
 PyTorch runs eagerly and a CUDA launch returns before the card has done
 the work, so every place where the reference package waits for a result
 (``jax.block_until_ready``) synchronises the step's device here
 (``torch.cuda.synchronize``); without it a CUDA step would time only its
-launch.  The reference's ``RooflineEvaluator`` is not ported yet (ROADMAP
-A13).
+launch.
 """
 from __future__ import annotations
 
+import json
 import math
 import time
 from typing import Callable, Dict, Optional, Tuple
 
+from repro_torch.tuning.cache import CacheStore, open_store
+from repro_torch.tuning.cost_model import HBM_BYTES
 from repro_torch.tuning.objective import Evaluator
+from repro_torch.tuning.parameters import BASELINE, BackendConfig, config_from_point
 
 
 def _cuda_devices(obj, out: set) -> set:
@@ -52,6 +65,78 @@ def _wait(out, args) -> None:
 
         for dev in devices:
             torch.cuda.synchronize(dev)
+
+
+class RooflineEvaluator(Evaluator):
+    def __init__(
+        self,
+        arch: str,
+        shape_name: str,
+        *,
+        multi_pod: bool = False,
+        chips_per_pod: int = 1,
+        base: BackendConfig = BASELINE,
+        hbm_bytes: float = HBM_BYTES,
+        cache_path: Optional[str] = None,
+    ):
+        self.arch = arch
+        self.shape_name = shape_name
+        self.multi_pod = multi_pod
+        self.chips_per_pod = chips_per_pod
+        self.base = base
+        self.hbm_bytes = hbm_bytes
+        # the shared store is loaded exactly once here; later in-memory
+        # misses re-consult it (a locked file read) before tracing, so
+        # entries written by concurrent hosts after startup are reused
+        self.store: CacheStore = open_store(cache_path)
+        self._cache: Dict[str, dict] = self.store.load()
+
+    supports_fidelity = True
+
+    def _key(self, bc: BackendConfig, fast: bool = False) -> str:
+        d = {"arch": self.arch, "shape": self.shape_name, "mp": self.multi_pod,
+             "bc": bc.__dict__}
+        if fast:  # full-fidelity keys keep the historical format unchanged
+            d["analysis"] = "fast"
+        return json.dumps(d, sort_keys=True)
+
+    def __call__(self, point: Dict,
+                 fidelity: Optional[float] = None) -> Tuple[float, dict]:
+        from repro_torch.launch.dryrun import analyze_cell  # lazy: the model stack
+
+        # analysis-depth fidelity: a partial measurement traces 1 and 2
+        # periods and extrapolates (``fast``) instead of the whole depth
+        fast = fidelity is not None and fidelity < 1.0
+        bc = config_from_point(point, self.base)
+        key = self._key(bc, fast=fast)
+        rec = self._cache.get(key)
+        if rec is None:
+            # in-memory miss: another host sharing this store may have
+            # analysed it since __init__ — a locked file read is far cheaper
+            # than a trace.  Merge every entry we don't already hold: each
+            # concurrent-host record then costs one file read in all
+            for k, v in self.store.load().items():
+                self._cache.setdefault(k, v)
+            rec = self._cache.get(key)
+        if rec is None:
+            rec = analyze_cell(
+                self.arch, self.shape_name, multi_pod=self.multi_pod,
+                bc=bc, chips_per_pod=self.chips_per_pod, fast=fast,
+            )
+            self._cache[key] = rec
+            # merge-on-write under the store's file lock: concurrent tuning
+            # runs sharing one cache file union their entries
+            self.store.put(key, rec)
+        # a full-fidelity request is byte-identical to a plain call,
+        # meta included; only partial measurements are labeled
+        fid_meta = {"fidelity": float(fidelity)} if fast else {}
+        if rec.get("skipped"):
+            return -math.inf, dict(fid_meta, skip_reason=rec["skip_reason"])
+        mem = rec["memory"]["per_device_B"]
+        meta = dict(fid_meta, roofline=rec["roofline"], mem_per_device_B=mem)
+        if mem > self.hbm_bytes:
+            return -math.inf, dict(meta, oom=True)
+        return float(rec["roofline"]["throughput_tok_s"]), meta
 
 
 #: two-sided 95% Student-t critical values by degrees of freedom (1-30);

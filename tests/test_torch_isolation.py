@@ -37,6 +37,17 @@ PAPER_MODULES = ("repro_torch.benchmarks.workloads", "repro_torch.benchmarks.fig
                  "repro_torch.examples.quickstart", "repro_torch.tuning.kernel_objective")
 
 
+#: the roofline path: cost model, parameters, sharding rules, mesh, the
+#: trace analysis and its hooks, the dry run, the tuning CLI and what
+#: reads its records
+ROOFLINE_MODULES = ("repro_torch.tuning.cost_model", "repro_torch.tuning.parameters",
+                    "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+                    "repro_torch.tuning.trace_analysis", "repro_torch.runtime.trace_hooks",
+                    "repro_torch.launch.dryrun", "repro_torch.launch.tune",
+                    "repro_torch.benchmarks.roofline", "repro_torch.benchmarks.experiments_tables",
+                    "repro_torch.benchmarks.run", "repro_torch.examples.tune_backend")
+
+
 def _probe(names):
     code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT), names=names)
     return subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -71,7 +82,7 @@ def test_port_has_the_expected_modules():
                  "repro_torch.runtime.fault_tolerance", "repro_torch.train.train_step",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
                  "repro_torch.models.layers", "repro_torch.models.encdec",
-                 *PAPER_MODULES):
+                 *PAPER_MODULES, *ROOFLINE_MODULES):
         assert must in MODULES
 
 
