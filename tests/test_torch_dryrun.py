@@ -202,6 +202,19 @@ def test_the_op_cache_and_the_microbatch_replay_change_nothing(monkeypatch):
     assert fast.per_device_B == slow.per_device_B
 
 
+@pytest.mark.parametrize("microbatches", [1, 4])
+def test_trace_cost_traces_with_and_without_the_replay(microbatches):
+    from repro_torch.benchmarks import trace_cost
+
+    bc = _bc("train", remat="dots").replace(microbatches=microbatches)
+    replayed = trace_cost.trace(CFG, _shape("train"), bc, replay=True)
+    repeat = trace_hooks.repeat
+    cache_only = trace_cost.trace(CFG, _shape("train"), bc, replay=False)
+    assert trace_hooks.repeat is repeat  # put back
+    for k in trace_cost.FIELDS:
+        assert getattr(replayed, k) == getattr(cache_only, k), k
+
+
 def test_traces_in_threads_do_not_mix():
     import threading
 

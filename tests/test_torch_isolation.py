@@ -38,14 +38,15 @@ PAPER_MODULES = ("repro_torch.benchmarks.workloads", "repro_torch.benchmarks.fig
 
 
 #: the roofline path: cost model, parameters, sharding rules, mesh, the
-#: trace analysis and its hooks, the dry run, the tuning CLI and what
-#: reads its records
+#: trace analysis and its hooks, the dry run, the tuning CLI, what reads
+#: its records and what times its trace
 ROOFLINE_MODULES = ("repro_torch.tuning.cost_model", "repro_torch.tuning.parameters",
                     "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
                     "repro_torch.tuning.trace_analysis", "repro_torch.runtime.trace_hooks",
                     "repro_torch.launch.dryrun", "repro_torch.launch.tune",
                     "repro_torch.benchmarks.roofline", "repro_torch.benchmarks.experiments_tables",
-                    "repro_torch.benchmarks.run", "repro_torch.examples.tune_backend")
+                    "repro_torch.benchmarks.run", "repro_torch.examples.tune_backend",
+                    "repro_torch.benchmarks.trace_cost")
 
 
 def _probe(names):
