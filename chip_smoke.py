@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases env,build,families
     python3 chip_smoke.py --phases env,build,train,paper,host_knobs
     python3 chip_smoke.py --phases env,build,roofline
+    python3 chip_smoke.py --phases env,build,multichip
 
 Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
@@ -43,6 +44,10 @@ the tuning CLI over it (``repro_torch.launch.tune``, BO and GA), measures
 the card's copy and matmul rates beside the data sheet's, and runs three
 steps of qwen2-0.5b on the card beside their dry runs: peak bytes against
 ``max_memory_allocated``, step seconds against the roofline's estimate.
+The ``multichip`` phase runs the dry run and the tuning CLI at a 256-chip
+pod and across two pods (device-free: DTensors over a fake process group,
+on this host), and expert parallelism on the card through a one-rank NCCL
+group (``repro_torch.benchmarks.ep_forward``), each part in a child process.
 Each phase prints JSON lines; any failure
 ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -221,6 +226,20 @@ ROOFLINE_LOSS_RTOL = 1e-3
 ROOFLINE_ULPS = 8
 COPY_BYTES = 2 << 30             # device-to-device copy of 2 GiB
 MATMUL_N = 8192                  # bf16 matmul of 8192^3
+
+# the multichip phase: dry runs at the reference's 256-chip pod (device-free)
+MULTICHIP_CELLS = ("qwen2_train", "qwen3_moe_train", "deepseek_decode")
+MULTICHIP_CHIPS = 256
+MULTICHIP_BUDGET = 8
+MULTICHIP_EP = {"arch": "qwen3-moe-30b-a3b", "layers": 2, "batch": 2, "seq": 512,
+                "dtype": "bf16"}
+MULTICHIP_TIMEOUT = 540          # seconds a child of the phase may take
+# the one failure the port's layout has where the reference's has none: a
+# device's batch that the microbatch count does not divide (dp * microbatches
+# above the batch; train/train_step.py MicrobatchSplitError).  Of the §Perf
+# variants only qwen2_train's H5 (dp=256, 2 microbatches of a 256 batch)
+MICROBATCH_SPLIT = "MicrobatchSplitError"
+MULTICHIP_KNOWN_ERRORS = {("qwen2_train", "H5 ")}
 
 
 def emit(obj):
@@ -2473,7 +2492,9 @@ def kernels_line(cx):
     run (K1 and K2 forward; the scans and decode are not on that path);
     ``family_launches`` in the ``families`` phase; ``paper_launches`` in the
     ``paper`` phase, summed over its five workloads; ``roofline_launches``
-    in the ``roofline`` phase's three steps on the kernel path."""
+    in the ``roofline`` phase's three steps on the kernel path;
+    ``multichip_launches`` in the ``multichip`` phase's expert-parallel
+    forward."""
     meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
@@ -2509,6 +2530,7 @@ def kernels_line(cx):
                     "family_launches": cx.family_launches[name],
                     "paper_launches": cx.paper_launches[name],
                     "roofline_launches": cx.roofline_launches[name],
+                    "multichip_launches": cx.multichip_launches[name],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
 
@@ -2823,12 +2845,225 @@ def _roofline_body(cx, tmp, tuning, t_phase):
           "step_ratios": {c["kind"]: c["step_ratio"] for c in checks}})
 
 
+def _child(tmp, tag, args):
+    """``python <args>`` in the background, its output to a file: (process,
+    tag, log path, start)."""
+    log = os.path.join(tmp, f"{tag}.log")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, *args], stdout=f, stderr=subprocess.STDOUT,
+                                env=env, cwd=HERE)
+    return proc, tag, log, time.perf_counter()
+
+
+def _wait_child(run):
+    """Wait for a child; its log and seconds.  A child that fails or runs
+    past MULTICHIP_TIMEOUT fails the phase."""
+    proc, tag, log, t0 = run
+    try:
+        proc.wait(timeout=max(1.0, MULTICHIP_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"multichip: {tag} ran past {MULTICHIP_TIMEOUT} s")
+    with open(log) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"multichip: {tag} exited {proc.returncode}:\n" + text[-3000:])
+    return text, time.perf_counter() - t0
+
+
+def phase_multichip(cx):
+    """More than one card, as far as one card shows it.  Every part runs in
+    a child process of its own, so that no process group outlives it.
+    (a) Dry runs at the reference's 256-chip pod, device-free on this
+    host (``repro_torch.benchmarks.perf_iterations --fast``: DTensors over
+    a fake process group, 1 and 2 periods traced and extrapolated): the
+    three §Perf cells' variants, and qwen2-0.5b train_4k across two pods
+    at BASELINE; the factor by which ``ep_local`` cuts qwen3-moe's
+    collective bytes against ``gspmd`` is printed, and ``ep_local`` below
+    ``gspmd`` is the check; a variant that fails fails the phase, but for
+    MULTICHIP_KNOWN_ERRORS.  (b) The tuning CLI at 256 chips, BO and GA at
+    budget 8 on qwen2-0.5b train_4k: each must find a finite point; its
+    -inf points are counted by reason (out of memory, skipped, the
+    microbatch split the port cannot lay out), and any other error fails.  (c)
+    Expert parallelism on the card (``repro_torch.benchmarks.ep_forward``):
+    qwen3-moe-30b-a3b at full width, 2 of 48 layers, bf16, B=2, S=512, on
+    the served kernel runtime under a 1x1 DeviceMesh over a one-rank NCCL
+    group: the ``ep_local`` forward within ROOFLINE_ULPS bf16 ulps of the
+    largest logit of the ``gspmd`` forward, K1 and K2 launched (counts set
+    to 0 just before it), one NCCL all-reduce a MoE layer, and every K1
+    and K2 call of the EP forward within the kernels' tolerance and
+    ROOFLINE_ULPS of its plain version on the inputs it received.  The dry
+    runs and the tuners start first and run on the host while (c) holds
+    the card."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multichip_")
+    pod = ["--chips-per-pod", str(MULTICHIP_CHIPS)]
+    runs = {}
+    try:
+        for algo in ("bo", "ga"):
+            runs[f"tune_{algo}"] = _child(tmp, f"tune_{algo}", [
+                "-m", "repro_torch.launch.tune", "--arch", ROOFLINE_ARCH, "--shape", "train_4k",
+                "--algo", algo, "--budget", str(MULTICHIP_BUDGET), *pod,
+                "--out", os.path.join(tmp, f"tune_{algo}.json")])
+        for cell in MULTICHIP_CELLS:
+            runs[cell] = _child(tmp, cell, [
+                "-m", "repro_torch.benchmarks.perf_iterations", "--cell", cell, "--fast", *pod,
+                "--out", os.path.join(tmp, f"{cell}.json")])
+        runs["multi_pod"] = _child(tmp, "multi_pod", [
+            "-m", "repro_torch.launch.dryrun", "--arch", ROOFLINE_ARCH, "--shape", "train_4k",
+            *pod, "--multi-pod", "--out", os.path.join(tmp, "multi_pod.json")])
+        ep = MULTICHIP_EP
+        runs["ep"] = _child(tmp, "ep", [
+            "-m", "repro_torch.benchmarks.ep_forward", "--arch", ep["arch"],
+            "--layers", str(ep["layers"]), "--batch", str(ep["batch"]), "--seq", str(ep["seq"]),
+            "--dtype", ep["dtype"]])
+        _multichip_body(cx, tmp, runs, t_phase)
+    finally:  # a failure leaves no child behind
+        for proc, *_ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ep_calls_vs_plain(ep):
+    """Each K1 and K2 call of the EP forward (``kernel_calls``: the child
+    held each against its plain version on the inputs it received) against
+    the kernels' tolerance (``check_close``'s criterion, as ``tol_needed``)
+    and ROOFLINE_ULPS bf16 ulps of the plain output's largest |value|: per
+    kernel the calls, the worst numbers and the calls that miss."""
+    out = {name: {"calls": 0, "max_abs_err": 0.0, "max_ulps": 0.0, "max_tol_needed": 0.0,
+                  "failures": []} for name in ("rmsnorm", "flash_attention")}
+    for c in ep["kernel_calls"]:
+        w = out[c["kernel"]]
+        tol = TOL[c["kernel"]]["bf16" if c["dtype"] == "bfloat16" else "f32"]
+        ulps = c["max_abs_err"] / _ulp(c["max_abs_plain"])
+        w["calls"] += 1
+        w["max_abs_err"] = max(w["max_abs_err"], c["max_abs_err"])
+        w["max_ulps"] = max(w["max_ulps"], ulps)
+        w["max_tol_needed"] = max(w["max_tol_needed"], c["tol_needed"])
+        if not (c["same_shape_dtype"] and c["finite"] and c["tol_needed"] <= tol
+                and ulps <= ROOFLINE_ULPS and c["max_abs_plain"] > 0):
+            w["failures"].append({**c, "ulps": ulps, "tolerance": tol})
+    return out
+
+
+def _multichip_body(cx, tmp, runs, t_phase):
+    seconds = {}
+    # -- (c) expert parallelism on the card ------------------------------------------
+    text, seconds["ep"] = _wait_child(runs["ep"])
+    ep = json.loads(text.strip().splitlines()[-1])
+    tol = ROOFLINE_ULPS * _ulp(ep["max_abs_logit"])
+    vs_plain = _ep_calls_vs_plain(ep)
+    emit({"phase": "multichip", "part": "ep", "gpu": cx.smi, **ep, "tolerance": tol,
+          "kernels_vs_plain": vs_plain, "child_seconds": seconds["ep"]})
+    for name, worst in vs_plain.items():
+        if worst["calls"] != ep["launches"][name]:
+            raise AssertionError(f"multichip ep: {worst['calls']} {name} calls tapped, "
+                                 f"{ep['launches'][name]} launched in a forward")
+        if worst["failures"]:
+            raise AssertionError(f"multichip ep: {name} against its plain version: "
+                                 f"{worst['failures']}")
+    if not ep["finite"] or ep["shape"] != [ep["batch"], ep["seq"], ep["shape"][-1]]:
+        raise AssertionError(f"multichip ep: logits {ep['shape']} not finite")
+    if ep["max_abs_diff"] > tol:
+        raise AssertionError(f"multichip ep: ep_local {ep['max_abs_diff']:.3e} from gspmd "
+                             f"(tolerance {tol:.3e})")
+    for name in ("rmsnorm", "flash_attention"):
+        if ep["launches"][name] <= 0:
+            raise AssertionError(f"multichip ep: {name} was not launched")
+    if ep["all_reduces_one_forward"] != ep["moe_layers"] or ep["backend"] != "nccl":
+        raise AssertionError(f"multichip ep: {ep['all_reduces_one_forward']} {ep['backend']} "
+                             f"all-reduces in a forward of {ep['moe_layers']} MoE layers")
+    cx.multichip_launches = ep["launches"]
+
+    # -- (a) dry runs at 256 chips -------------------------------------------------------
+    rows = {}
+    for cell in MULTICHIP_CELLS:
+        _, seconds[cell] = _wait_child(runs[cell])
+        with open(os.path.join(tmp, f"{cell}.json")) as f:
+            rows[cell] = json.load(f)
+        for row in rows[cell]:
+            emit({"phase": "multichip", "part": "dryrun", "chips": MULTICHIP_CHIPS,
+                  "device_free": True, **row})
+            if "error" in row:
+                known = any(cell == c and row["variant"].startswith(v)
+                            for c, v in MULTICHIP_KNOWN_ERRORS)
+                if known and MICROBATCH_SPLIT in row["error"]:
+                    continue  # the variant the port cannot lay out
+                raise AssertionError(f"multichip: dry run {cell} {row['variant']}: "
+                                     f"{row['error']}")
+            if not (row["est_step_s"] > 0 and row["mem_GB"] > 0):
+                raise AssertionError(f"multichip: dry run {cell} {row['variant']}: {row}")
+    _, seconds["multi_pod"] = _wait_child(runs["multi_pod"])
+    with open(os.path.join(tmp, "multi_pod.json")) as f:
+        mp = json.load(f)[0]
+    if "error" in mp or not mp["multi_pod"] or mp["chips"] != 2 * MULTICHIP_CHIPS:
+        raise AssertionError(f"multichip: the two-pod dry run: {mp}")
+    emit({"phase": "multichip", "part": "multi_pod", "device_free": True, "arch": mp["arch"],
+          "shape": mp["shape"], "mesh": mp["mesh"], "chips": mp["chips"],
+          "analysis": mp["cost"]["analysis"], "roofline": _roofline_row(mp),
+          "per_device_B": mp["memory"]["per_device_B"], "collectives": mp["collectives"],
+          "trace_seconds": mp["compile_seconds"]})
+    moe = {r["overrides"].get("moe_impl", "gspmd"): r for r in rows["qwen3_moe_train"]
+           if set(r["overrides"]) <= {"moe_impl"}}
+    gspmd, ep_local = moe["gspmd"]["collective_bytes"], moe["ep_local"]["collective_bytes"]
+    emit({"phase": "multichip", "part": "ep_vs_gspmd", "cell": "qwen3_moe_train",
+          "device_free": True, "gspmd_weighted_B": gspmd, "ep_local_weighted_B": ep_local,
+          "factor": gspmd / ep_local if ep_local else None,
+          "reference_claim": "about 100x (the reference's H1)"})
+    if not ep_local < gspmd:
+        raise AssertionError(f"multichip: ep_local moves {ep_local:.4g} B, gspmd {gspmd:.4g}")
+
+    # -- (b) the tuning CLI at 256 chips ------------------------------------------------
+    tuned = {}
+    for algo in ("bo", "ga"):
+        _, seconds[f"tune_{algo}"] = _wait_child(runs[f"tune_{algo}"])
+        with open(os.path.join(tmp, f"tune_{algo}.json")) as f:
+            evals = json.load(f)
+        finite = [e for e in evals if math.isfinite(e["value"])]
+        best = max(finite, key=lambda e: e["value"]) if finite else None
+        reasons = {"oom": 0, "skip": 0, "microbatch_split": 0, "error": 0}
+        for e in evals:
+            if math.isfinite(e["value"]):
+                continue
+            m = e["meta"]
+            why = ("oom" if m.get("oom") else "skip" if "skip_reason" in m
+                   else "microbatch_split" if MICROBATCH_SPLIT in m.get("error", "")
+                   else "error")
+            reasons[why] += 1
+            if why == "error":
+                raise AssertionError(f"multichip: {algo} at {MULTICHIP_CHIPS} chips, "
+                                     f"{e['point']}: {m}")
+        tuned[algo] = {"evaluations": len(evals), "finite": len(finite),
+                       "minus_inf_by_reason": reasons,
+                       "best_point": best and best["point"],
+                       "best_tok_s": best and best["value"],
+                       "best_mem_per_device_B": best and best["meta"].get("mem_per_device_B"),
+                       "seconds": seconds[f"tune_{algo}"]}
+        emit({"phase": "multichip", "part": "tune", "algo": algo, "chips": MULTICHIP_CHIPS,
+              "arch": ROOFLINE_ARCH, "shape": "train_4k", "budget": MULTICHIP_BUDGET,
+              "device_free": True, **tuned[algo]})
+        if not finite:
+            raise AssertionError(f"multichip: {algo} at {MULTICHIP_CHIPS} chips found no "
+                                 "finite point")
+    emit({"phase": "multichip", "part": "done", "gpu": cx.smi,
+          "multichip_launches": cx.multichip_launches,
+          "seconds": round(time.perf_counter() - t_phase, 1),
+          "child_seconds": {k: round(v, 1) for k, v in seconds.items()},
+          "ep_factor": gspmd / ep_local if ep_local else None})
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "parity": phase_parity, "serve": phase_serve, "train": phase_train,
           "tuning_db": phase_tuning_db,
           "sweep": phase_sweep, "bo": phase_bo, "service": phase_service,
           "families": phase_families, "paper": phase_paper, "host_knobs": phase_host_knobs,
-          "roofline": phase_roofline}
+          "roofline": phase_roofline, "multichip": phase_multichip}
 
 
 def main(argv=None):

@@ -1,16 +1,24 @@
-"""The paper's tuning framework applied to this framework's own backend,
-for one NVIDIA H100.
+"""The paper's tuning framework applied to this framework's own backend:
+one NVIDIA H100 by default, or a pod of ``--chips-per-pod`` of them (two
+with ``--multi-pod``).
 
     PYTHONPATH=src python -m repro_torch.launch.tune --arch qwen2-0.5b \
         --shape train_4k --algo bo --budget 8 --memo-cache artifacts/memo.json
+    PYTHONPATH=src python -m repro_torch.launch.tune --arch qwen2-0.5b \
+        --shape train_4k --algo bo --budget 8 --chips-per-pod 256
 
-Each evaluation traces the (arch x shape) cell's step for one card with the
-candidate BackendConfig (``launch/dryrun.py``: ``meta`` tensors, nothing
+Each evaluation traces the (arch x shape) cell's step with the candidate
+BackendConfig, one device's share of it on a mesh (``launch/dryrun.py``:
+``meta`` tensors, DTensors over a fake process group on a mesh, nothing
 allocated, no card needed) and returns its roofline throughput;
-configurations whose peak bytes exceed the card's 80 GB fail (-inf) like
-crashed measurements in the paper.  Unlike the reference's CLI this one
-sets no ``XLA_FLAGS`` and compiles nothing; on one card the space has no
-mesh dims (``backend_space(..., chips_per_pod=1)``).
+configurations whose peak bytes a device exceed the card's 80 GB fail
+(-inf) like crashed measurements in the paper.  Unlike the reference's CLI
+this one sets no ``XLA_FLAGS`` and compiles nothing.  On one card
+(``--chips-per-pod 1``, the default; the reference's is 256) the space
+has no mesh dims (``backend_space(..., chips_per_pod=1)``); on a pod it
+has the reference's ``log2_dp`` and ``sharding_style``.  The evaluator's
+cache keys are the reference's, which do not name the pod size: give one
+``--cache`` file one ``--chips-per-pod``.
 
 Completion-driven evaluation: the engine keeps ``--parallelism`` workers
 full and is told each result the moment its analysis finishes.  A trace
@@ -71,7 +79,6 @@ import pathlib
 
 from repro_torch.configs import get_config
 from repro_torch.core import SearchSpace, TransferConfig, Tuner, TunerConfig
-from repro_torch.launch.dryrun import _NOT_PORTED
 from repro_torch.tuning.evaluator import RooflineEvaluator
 from repro_torch.tuning.parameters import BASELINE, backend_space, config_from_point
 
@@ -159,7 +166,9 @@ def main(argv=None):
     ap.add_argument("--budget", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: raises (ROADMAP A14)")
+                    help="two pods of --chips-per-pod chips")
+    ap.add_argument("--chips-per-pod", type=int, default=1,
+                    help="chips of a pod (1: one card; the reference's default is 256)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--cache", default=None,
                     help="JSON cache of analysed evaluations (shared across algos)")
@@ -307,13 +316,10 @@ def main(argv=None):
                  "(or an explicit --fleet-port to start an empty elastic "
                  "fleet that workers --join mid-run)")
 
-    if args.multi_pod:
-        raise NotImplementedError(_NOT_PORTED)
-
     cfg = get_config(args.arch)
     shape_kind = "train" if args.shape.startswith("train") else "serve"
     space = SearchSpace.from_dicts(backend_space(cfg, kind=shape_kind,
-                                                 chips_per_pod=1))
+                                                 chips_per_pod=args.chips_per_pod))
     print(f"[tune] space: {space.names} (grid {space.grid_size():,})")
 
     if args.submit_to:
@@ -323,7 +329,8 @@ def main(argv=None):
         return _submit(args, space)
 
     evaluator = RooflineEvaluator(
-        args.arch, args.shape, multi_pod=args.multi_pod, cache_path=args.cache
+        args.arch, args.shape, multi_pod=args.multi_pod,
+        chips_per_pod=args.chips_per_pod, cache_path=args.cache
     )
     if args.serve_worker:
         # worker mode: serve this cell's objective to a remote tuner.  The

@@ -22,7 +22,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.lm import cast_tree
 from repro_torch.models.params import (P, dense_init, stack_layer_params, stack_zeros,
@@ -125,17 +124,15 @@ def _cross_attend(blk, x, k, v, *, cfg, rt, mode):
     q = L._project(x.to(rt.dtype()), p["wq"], p.get("bq"), rt)
     if mode == "decode":
         lengths = torch.full((x.shape[0],), k.shape[1], dtype=torch.int32, device=x.device)
-        out = ops.decode_attention(q[:, 0], k, v, lengths,
+        out = L._decode_attention(q[:, 0], k, v, lengths,
                                    impl=rt.attn_impl, block_kv=rt.block_kv,
                                    db=rt.tuning_db)[:, None]
     else:
-        out = ops.attention(q, k.to(rt.dtype()), v.to(rt.dtype()),
+        out = L._attention(q, k.to(rt.dtype()), v.to(rt.dtype()),
                             causal=False, impl=rt.attn_impl,
                             block_q=rt.block_q, block_kv=rt.block_kv,
                             unroll=rt.unroll_layers, db=rt.tuning_db)
-    B, S = out.shape[:2]
-    h, dh, d = p["wo"].shape
-    out = torch.matmul(out.reshape(B, S, h * dh), L._dt(p["wo"], rt).reshape(h * dh, d))
+    out = L._out_project(out, p["wo"], rt)
     return out.to(x.dtype)
 
 

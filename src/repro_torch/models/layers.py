@@ -24,14 +24,17 @@ Two things differ from the reference package on purpose:
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as _sharding
 from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import gla_scan_chunked_ref, ssm_scan_chunked_ref
@@ -164,10 +167,36 @@ def init_attention_cache(cfg: ModelConfig, batch: int, cache_len: int,
     }
 
 
+def _split_heads(out, h: int, k: int):
+    """(..., h*k) -> (..., h, k).  On a mesh the flat dim is laid out as
+    the heads are first (replicated where ``h`` does not divide), so that
+    the split never cuts a head."""
+    axes = ("batch",) + (None,) * (out.dim() - 2) + ("heads",)
+    out = shard_hint(out, axes, (*out.shape[:-1], h))
+    return out.reshape(*out.shape[:-1], h, k)
+
+
+def _flat_heads(w, rt: Runtime):
+    """(d, h, k) -> (d, h*k) in the compute dtype; on a mesh laid out as
+    its heads (so that its gradient folds back into them too)."""
+    d, h, k = w.shape
+    return shard_hint(_dt(w, rt).reshape(d, h * k), (None, "heads"), (d, h))
+
+
+def _out_project(out, w, rt: Runtime):
+    """(B,S,h,k) x (h,k,d) -> (B,S,d): the heads' outputs and the output
+    weight flattened, each laid out as its heads on a mesh."""
+    h, k, d = w.shape
+    B, S = out.shape[:2]
+    flat = shard_hint(out.reshape(B, S, h * k), ("batch", None, "heads"), (B, S, h))
+    w2 = shard_hint(_dt(w, rt).reshape(h * k, d), ("heads", None), (h, d))
+    return torch.matmul(flat, w2)
+
+
 def _project(x, w, b, rt: Runtime):
     """(B,S,D) x (D,h,k) -> (B,S,h,k), plus bias."""
-    d, h, k = w.shape
-    out = torch.matmul(x, _dt(w, rt).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+    _, h, k = w.shape
+    out = _split_heads(torch.matmul(x, _flat_heads(w, rt)), h, k)
     return out if b is None else out + _dt(b, rt)
 
 
@@ -201,7 +230,7 @@ def attention_apply(
             q = apply_rope(q, None, cfg.rope_theta, tables)
             k = apply_rope(k, None, cfg.rope_theta, tables)
         q = shard_hint(q, ("batch", None, "heads", None))
-        out = ops.attention(
+        out = _attention(
             q, k, v,
             causal=causal,
             window=cfg.sliding_window if causal else None,
@@ -226,19 +255,18 @@ def attention_apply(
         slot = pos % L if cfg.sliding_window else pos
         if not 0 <= slot < L:
             raise IndexError(f"decode position {pos} is outside the cache of {L} slots")
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
+        _write_seq(ck, slot, k[:, :1])
+        _write_seq(cv, slot, v[:, :1])
         lengths = torch.full((B,), min(pos + 1, L), dtype=torch.int32, device=x.device)
         # the cache is read in the type it is stored in: widening bf16 to
         # the compute dtype is exact and is left to the callee
-        out = ops.decode_attention(
+        out = _decode_attention(
             q[:, 0], ck, cv, lengths,
             impl=rt.attn_impl, block_kv=rt.block_kv, db=rt.tuning_db,
         )[:, None]
         new_cache = {"k": ck, "v": cv}
 
-    h, dh, d = p["wo"].shape
-    out = torch.matmul(out.reshape(B, S, h * dh), _dt(p["wo"], rt).reshape(h * dh, d))
+    out = _out_project(out, p["wo"], rt)
     return out.to(x.dtype), new_cache
 
 
@@ -248,13 +276,93 @@ def _fill_kv_cache(cfg, cache, k, v):
     ck, cv = cache["k"], cache["v"]
     L = ck.shape[1]
     if S >= L:
-        slots = torch.arange(S - L, S, device=k.device) % L
-        ck[:, slots] = k[:, S - L:].to(ck.dtype)
-        cv[:, slots] = v[:, S - L:].to(cv.dtype)
-    else:
-        ck[:, :S] = k.to(ck.dtype)
-        cv[:, :S] = v.to(cv.dtype)
+        # slot (S - L + i) % L holds position S - L + i: the tail, rolled
+        k, v = k[:, S - L:], v[:, S - L:]
+        if S % L:
+            k, v = torch.roll(k, S % L, dims=1), torch.roll(v, S % L, dims=1)
+    _write_seq(ck, 0, k)
+    _write_seq(cv, 0, v)
     return {"k": ck, "v": cv}
+
+
+def _attention(q, k, v, **kw):
+    """``ops.attention``.  On a mesh the region runs on each device's shards
+    (``local_map``): the batch as the rules lay it out, the query heads on
+    the model axis where they divide it (and meet the KV groups at a
+    shard's edge), and each shard with the KV heads its query heads read —
+    the KV heads arrive whole and are sliced here, as GSPMD slices them."""
+    if not isinstance(q, DTensor):
+        return ops.attention(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+
+    rules = _sharding._ACTIVE.rules
+    dm = rules.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    group = H // K
+    q_pl = list(rules.placements_for(("batch", None, "heads", None), q.shape))
+    heads = [i for i, p in enumerate(q_pl) if isinstance(p, Shard) and p.dim == 2]
+    n = math.prod(dm.size(i) for i in heads)
+    if heads and (H // n) % group and group % (H // n):
+        for i in heads:  # a shard's heads would straddle a KV group: replicate them
+            q_pl[i] = Replicate()
+        heads, n = [], 1
+    kv_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in q_pl)
+    h_loc = H // n
+
+    def local(ql, kl, vl):
+        if heads:
+            shard = dm.get_local_rank(dm.mesh_dim_names[heads[0]])
+            lo, hi = shard * h_loc // group, ((shard + 1) * h_loc - 1) // group + 1
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return ops.attention(ql, kl, vl, **kw)
+
+    q_pl = tuple(q_pl)
+    return _sharding.local_region(local, (q_pl,), (q_pl, kv_pl, kv_pl), (q, k, v), dm)
+
+
+def _decode_attention(q, k, v, lengths, **kw):
+    """``ops.decode_attention``.  A cache placed by KV heads and whole along
+    the sequence (``cache_shard="heads"``) is attended shard-local under
+    ``local_map``: each device its own KV heads and their query heads.
+    A cache sharded along the sequence takes DTensor's propagation."""
+    if isinstance(k, DTensor):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = tuple(k.placements)
+        on = lambda d: [isinstance(p, Shard) and p.dim == d for p in pl]
+        if any(on(2)) and not any(on(1)):
+            q_pl = tuple(p if b else Shard(1) if h else Replicate()
+                         for p, b, h in zip(pl, on(0), on(2)))
+            len_pl = tuple(p if b else Replicate() for p, b in zip(pl, on(0)))
+            return _sharding.local_region(
+                lambda *a: ops.decode_attention(*a, **kw), (q_pl,),
+                (q_pl, pl, pl, len_pl), (q, k, v, lengths), k.device_mesh)
+    return ops.decode_attention(q, k, v, lengths, **kw)
+
+
+def _write_seq(buf, start: int, value) -> None:
+    """``buf[:, start:start + n] = value`` in place, ``n = value.shape[1]``
+    (a cache write along its sequence dim).  A ``buf`` placed on a mesh
+    (a DTensor whose sequence dim may be sharded) is written shard by
+    shard: ``value`` is laid out as ``buf`` is but whole along the sequence,
+    and each device copies the part of the range that its shard holds."""
+    n = value.shape[1]
+    if not isinstance(buf, DTensor):
+        buf[:, start:start + n] = value.to(buf.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, pl = buf.device_mesh, tuple(buf.placements)
+    whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in pl]
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    v = value.to(buf.dtype).redistribute(mesh, whole).to_local()
+    local = buf.to_local()
+    first = compute_local_shape_and_global_offset(buf.shape, mesh, pl)[1][1]
+    lo, hi = max(start, first), min(start + n, first + local.shape[1])
+    if lo < hi:
+        local[:, lo - first:hi - first] = v[:, lo - start:hi - start]
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +407,8 @@ def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) ->
 
 def _head_project(x, w, rt: Runtime):
     """(B,S,r) x (r,h,k) -> (B,S,h,k)."""
-    r, h, k = w.shape
-    return torch.matmul(x, _dt(w, rt).reshape(r, h * k)).reshape(*x.shape[:-1], h, k)
+    _, h, k = w.shape
+    return _split_heads(torch.matmul(x, _flat_heads(w, rt)), h, k)
 
 
 def mla_apply(
@@ -335,15 +443,15 @@ def mla_apply(
         k_nope, v = kv[..., :dn], kv[..., dn:]
         k = torch.cat([k_nope, k_rope_r.expand(*k_nope.shape[:3], dr)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        out = ops.attention(
+        out = _attention(
             qq, k, v, causal=True, scale=scale,
             impl=rt.attn_impl, block_q=rt.block_q, block_kv=rt.block_kv,
             unroll=rt.unroll_layers, prune=rt.attn_prune, db=rt.tuning_db,
         )
         new_cache = None
         if mode == "prefill":
-            cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
-            cache["krope"][:, :S] = k_rope_r[:, :, 0].to(cache["krope"].dtype)
+            _write_seq(cache["ckv"], 0, ckv)
+            _write_seq(cache["krope"], 0, k_rope_r[:, :, 0])
             new_cache = {"ckv": cache["ckv"], "krope": cache["krope"]}
     else:  # decode — absorbed latent-space attention (the point of MLA)
         pos = int(pos)
@@ -354,8 +462,8 @@ def mla_apply(
         tables = _rope_tables_at(pos, 1, B, dr, cfg.rope_theta, x.device)
         q_rope = apply_rope(q_rope, None, cfg.rope_theta, tables)
         k_rope_r = apply_rope(k_rope[:, :, None, :], None, cfg.rope_theta, tables)[:, :, 0]
-        ck[:, pos] = ckv[:, 0].to(ck.dtype)
-        kr[:, pos] = k_rope_r[:, 0].to(kr.dtype)
+        _write_seq(ck, pos, ckv[:, :1])
+        _write_seq(kr, pos, k_rope_r[:, :1])
         new_cache = {"ckv": ck, "krope": kr}
         wkv_b = _dt(p["wkv_b"], rt)
         w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]
@@ -369,8 +477,7 @@ def mla_apply(
                                      impl="ref")  # latent kv: the oracle
         out = torch.einsum("bhr,rhv->bhv", o_lat, w_v)[:, None]
 
-    h, dv, d = p["wo"].shape
-    out = torch.matmul(out.reshape(B, S, h * dv), _dt(p["wo"], rt).reshape(h * dv, d))
+    out = _out_project(out, p["wo"], rt)
     return out.to(x.dtype), new_cache
 
 
@@ -426,14 +533,104 @@ MOE_IMPLS = ("gspmd", "ep_local")
 
 
 def moe_apply(p, x, *, cfg: ModelConfig, rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out, aux_loss).  ``rt.moe_impl``: ``"gspmd"`` is the
-    grouped capacity dispatch below.  ``"ep_local"`` (expert parallelism
-    over a mesh's model axis) needs sharding rules, and one card has none,
-    so it takes the same path, as the reference does when no rules are
-    active."""
+    """Returns (out, aux_loss).
+
+    rt.moe_impl:
+      * ``"gspmd"`` (paper-faithful baseline): grouped capacity dispatch as
+        a scatter into per-expert buffers and a gather back; on a mesh,
+        DTensor's sharding propagation decides the collectives.
+      * ``"ep_local"`` (beyond-paper): explicit expert parallelism under
+        ``local_map`` — activations replicated across the model axis, each
+        shard dispatches only to its local E/tp experts (no communication)
+        and the combine is a single sum all-reduce of the (B, S, D) output
+        in the compute dtype.  It needs active rules with a ``"model"``
+        axis that divides the experts; otherwise ``"gspmd"`` runs, as in
+        the reference.
+    """
     if rt.moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {rt.moe_impl!r}; one of {MOE_IMPLS}")
+    if rt.moe_impl == "ep_local" and _ep_rules_available(cfg):
+        return _moe_apply_ep(p, x, cfg=cfg, rt=rt)
     return _moe_apply_gspmd(p, x, cfg=cfg, rt=rt)
+
+
+def _ep_rules_available(cfg: ModelConfig) -> bool:
+    rules = getattr(_sharding._ACTIVE, "rules", None)
+    if rules is None or "model" not in rules.mesh.axis_names:
+        return False
+    return cfg.moe.num_experts % int(rules.mesh.shape["model"]) == 0
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The expert-parallel combine: the sum of each model shard's partial
+    output (the reference's ``psum``).  Its result is the same on every
+    shard, so each shard's gradient is the result's gradient itself."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed._functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _moe_apply_ep(p, x, *, cfg: ModelConfig, rt: Runtime):
+    """Expert-parallel MoE (see ``moe_apply``).  Tokens are grouped a
+    sequence a group (G = local batch, T = S), as in the reference."""
+    rules = _sharding._ACTIVE.rules
+    mesh, dm = rules.mesh, rules.device_mesh
+    tp = int(mesh.shape["model"])
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    E_loc = E // tp
+    B, S, D = x.shape
+    rt_ep = dataclasses.replace(rt, moe_groups=0)
+
+    def local_moe(xl, router, w_gate, w_up, w_down):
+        # xl: (B_loc, S, D), replicated across "model"; w_*: (E_loc, ...)
+        Bl = xl.shape[0]
+        xg, top_p, top_i, aux, C, rank_of, keep = moe_route(
+            {"router": router}, xl, cfg=cfg, rt=rt_ep)
+        G = xg.shape[0]
+        shard = dm.get_local_rank("model") if dm is not None else 0
+        mine = keep & ((top_i // E_loc) == shard)  # the expert lives on this shard
+        dump = E_loc * C
+        dest = torch.where(mine, (top_i % E_loc) * C + rank_of, dump).reshape(G, S * K, 1)
+
+        buf = torch.zeros((G, E_loc * C + 1, D), dtype=xg.dtype, device=xg.device)
+        buf.scatter_add_(1, dest.expand(G, S * K, D), xg.repeat_interleave(K, dim=1))
+        buf = buf[:, : E_loc * C].reshape(G, E_loc, C, D)
+
+        g = F.silu(torch.einsum("gecd,edf->gecf", buf, _dt(w_gate, rt)))
+        u = torch.einsum("gecd,edf->gecf", buf, _dt(w_up, rt))
+        y = torch.einsum("gecf,efd->gecd", g * u, _dt(w_down, rt))
+
+        y_flat = torch.cat([y.reshape(G, E_loc * C, D), y.new_zeros((G, 1, D))], dim=1)
+        gathered = torch.gather(y_flat, 1, dest.expand(G, S * K, D)).reshape(G, S, K, D)
+        out = torch.einsum("gtkd,gtk->gtd", gathered, (top_p * mine).to(y.dtype))
+        if dm is not None:  # one sum all-reduce over "model", in the compute dtype
+            out = _SumOverModel.apply(out, dm.get_group("model"))
+        return out.reshape(Bl, S, D), aux
+
+    args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    if not rules.distributed:  # one device: nothing to place (a group's all-reduce stays)
+        out, aux = local_moe(*args)
+        return out.to(x.dtype), aux
+
+    from torch.distributed.tensor import Replicate
+
+    batch_axes = ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+    x_pl = _sharding.placements(
+        (batch_axes if B % rules._axis_size(batch_axes) == 0 else None,), mesh)
+    rep = tuple(Replicate() for _ in mesh.axis_names)
+    experts = _sharding.placements(("model",), mesh)
+    out, aux = _sharding.local_region(local_moe, (x_pl, rep),
+                                      (x_pl, rep, experts, experts, experts), args, dm)
+    if not isinstance(x, DTensor):  # plain tensors in (the same on every rank): plain out
+        out, aux = out.full_tensor(), aux.to_local()
+    return out.to(x.dtype), aux
 
 
 def moe_capacity(cfg: ModelConfig, rt: Runtime, tokens_per_group: int) -> int:
@@ -491,14 +688,18 @@ def _moe_apply_gspmd(p, x, *, cfg: ModelConfig, rt: Runtime):
     dest = torch.where(keep, top_i * C + rank_of, dump).reshape(G, T * K, 1)
 
     # dispatch: slot (t, k) carries token t
-    buf = torch.zeros((G, E * C + 1, D), dtype=xc.dtype, device=x.device)
+    buf = _sharding.placed_zeros((G, E * C + 1, D), ("batch", None, None),
+                                 dtype=xc.dtype, device=x.device)
     buf.scatter_add_(1, dest.expand(G, T * K, D), xc.repeat_interleave(K, dim=1))
     buf = buf[:, : E * C].reshape(G, E, C, D)
+    buf = shard_hint(buf, ("batch", "experts", None, None))
 
     # expert FFN (SwiGLU)
     g = F.silu(torch.einsum("gecd,edf->gecf", buf, _dt(p["w_gate"], rt)))
     u = torch.einsum("gecd,edf->gecf", buf, _dt(p["w_up"], rt))
-    y = torch.einsum("gecf,efd->gecd", g * u, _dt(p["w_down"], rt))
+    h = shard_hint(g * u, ("batch", "experts", None, "ff"))
+    y = torch.einsum("gecf,efd->gecd", h, _dt(p["w_down"], rt))
+    y = shard_hint(y, ("batch", "experts", None, None))
 
     # combine: gather each slot's output, weight, sum over k
     y_flat = torch.cat([y.reshape(G, E * C, D), y.new_zeros((G, 1, D))], dim=1)
@@ -692,18 +893,19 @@ def rwkv_tmix_apply(
 
     # data-dependent ddlerp for the five streams
     mix_base = xc + dx * _dt(p["mu"], rt)[:, None, None]  # (5, B, S, D)
-    lora = torch.tanh(xc @ _dt(p["mix_w1"], rt)).reshape(B, S, 5, rc.mix_lora)
+    lora = torch.tanh(xc @ _dt(p["mix_w1"], rt))
+    lora = shard_hint(lora, ("batch", None, None)).reshape(B, S, 5, rc.mix_lora)
     lora = torch.einsum("bsfm,fmd->fbsd", lora, _dt(p["mix_w2"], rt))
     xw, xk, xv, xr, xg = [mix_base[i] + dx * lora[i] for i in range(5)]
 
-    r = (xr @ _dt(p["wr"], rt)).reshape(B, S, H, hs)
-    k = (xk @ _dt(p["wk"], rt)).reshape(B, S, H, hs)
-    v = (xv @ _dt(p["wv"], rt)).reshape(B, S, H, hs)
+    r = _split_heads(xr @ _dt(p["wr"], rt), H, hs)
+    k = _split_heads(xk @ _dt(p["wk"], rt), H, hs)
+    v = _split_heads(xv @ _dt(p["wv"], rt), H, hs)
     g = F.silu(xg @ _dt(p["wg"], rt))
 
     w_raw = (torch.tanh(xw @ _dt(p["w_lora1"], rt)) @ _dt(p["w_lora2"], rt)
              + _dt(p["w_bias"], rt))
-    w = torch.exp(-torch.exp(w_raw.float())).reshape(B, S, H, hs)
+    w = _split_heads(torch.exp(-torch.exp(w_raw.float())), H, hs)
     u = p["u"].float()
 
     new_cache = None

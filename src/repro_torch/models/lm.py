@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
@@ -54,6 +56,14 @@ def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
 _checkpoint_name.register_autograd(lambda ctx, g: (g, None))
 # its meta result, for the dry run's trace on meta tensors
 _checkpoint_name.register_fake(lambda x, name: torch.empty_like(x))
+
+
+@register_sharding(torch.ops.repro_torch.checkpoint_name.default)
+def _checkpoint_name_sharding(x, name):
+    """The mark is the identity: any layout of ``x`` is its result's (on a
+    mesh, for DTensor; one mesh axis at a time)."""
+    keep = [Replicate(), Partial()] + [Shard(d) for d in range(x.ndim)]
+    return [([p], [p, None]) for p in keep]
 
 
 def checkpoint_name(x: torch.Tensor, name: str, mark: bool) -> torch.Tensor:
@@ -134,6 +144,10 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
     return params
 
 
+#: the logical axes of the residual stream (B, S, D)
+_RESIDUAL = ("batch", None, "embed_act")
+
+
 def _block_apply(
     block, x, *, cfg: ModelConfig, rt: Runtime, mixer_kind: str, mlp_kind: str,
     mode: str, cache: Optional[dict], pos: Optional[int], mark: bool = False,
@@ -158,7 +172,9 @@ def _block_apply(
                                   cache=mixer_cache)
     else:
         raise ValueError(mixer_kind)
-    x = x + checkpoint_name(h, "mixer_out", mark)
+    # the residual stream keeps the embedding's layout (the reference's
+    # scan carry does; DTensor would leave a row-parallel sum partial)
+    x = shard_hint(x + checkpoint_name(h, "mixer_out", mark), _RESIDUAL)
     if mc is not None:
         new_cache["mixer"] = mc
 
@@ -173,16 +189,18 @@ def _block_apply(
         h, aux = L.moe_apply(block["mlp"], h, cfg=cfg, rt=rt)
     else:
         h = L.mlp_apply(block["mlp"], h, cfg=cfg, rt=rt)
-    x = x + checkpoint_name(h, "mlp_out", mark)
+    x = shard_hint(x + checkpoint_name(h, "mlp_out", mark), _RESIDUAL)
     return x, aux, (new_cache or None)
 
 
 def _embed(params, tokens, cfg, rt, image_embeds=None):
-    x = F.embedding(tokens, params["embed"]).to(rt.dtype())
+    # on a mesh the table is gathered over its embed shards first (FSDP's
+    # weight gather), so the lookup keeps the tokens' batch layout
+    x = F.embedding(tokens, shard_hint(params["embed"], ("vocab", None))).to(rt.dtype())
     if image_embeds is not None:
         n = image_embeds.shape[1]
         x = torch.cat([image_embeds.to(x.dtype), x[:, n:]], dim=1)
-    return shard_hint(x, ("batch", None, "embed_act"))
+    return shard_hint(x, _RESIDUAL)
 
 
 def _head(params, x, cfg, rt):

@@ -17,7 +17,9 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels.ops import with_db
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_leaves, tree_map
@@ -31,9 +33,44 @@ AUX_LOSS_WEIGHT = 0.01
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy in fp32.  logits (B,S,V), targets (B,S)."""
     logits = logits.to(torch.float32)
+    if isinstance(logits, DTensor):
+        return _vocab_parallel_cross_entropy(logits, targets)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
+
+
+def _vocab_parallel_cross_entropy(logits, targets):
+    """``cross_entropy`` of logits placed on a mesh, their vocab perhaps
+    sharded (Megatron's vocab-parallel form): the max and the sum of
+    exponentials are reduced over the vocab shards, and each device takes
+    the target's logit from its own shard (zero where the target lies in
+    another), the partial sums reduced.  DTensor's own ``logsumexp``
+    gathers the vocab, and the backward of its ``gather`` allocates the
+    global logits on every device."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    logits = shard_hint(logits, ("batch", None, "vocab"))  # no partial sum left
+    tok = ("batch", None, None)  # one value a token
+    m = shard_hint(logits.detach().amax(dim=-1, keepdim=True), tok)
+    lse = m + torch.log(shard_hint(torch.exp(logits - m).sum(dim=-1, keepdim=True), tok))
+
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    vocab = lambda p: isinstance(p, Shard) and p.dim == 2
+    if not isinstance(targets, DTensor):
+        targets = DTensor.from_local(targets, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False)
+    t = targets.redistribute(mesh, [Replicate() if vocab(p) else p for p in pl]).to_local()
+    local = logits.to_local()
+    first = compute_local_shape_and_global_offset(logits.shape, mesh, pl)[1][2]
+    n = local.shape[-1]
+    idx = t.long() - first
+    mine = (idx >= 0) & (idx < n)
+    gold = torch.gather(local, -1, idx.clamp(0, n - 1)[..., None]) * mine[..., None]
+    gold = DTensor.from_local(gold, mesh, [Partial() if vocab(p) else p for p in pl],
+                              shape=lse.shape, stride=lse.stride(), run_check=False)
+    return torch.mean(shard_hint(lse - gold, tok))
 
 
 def make_loss_fn(model: Model, rt: Runtime):
@@ -47,13 +84,42 @@ def make_loss_fn(model: Model, rt: Runtime):
 
 
 def _split_microbatches(batch: Dict[str, torch.Tensor], k: int):
+    """Each input as ``(k, b // k, ...)``.  Placed on a mesh, each device
+    splits its own rows (a microbatch takes ``1/k`` of every shard, not a
+    contiguous ``1/k`` of the batch: the mean over all microbatches is the
+    same, and no rows move between devices)."""
     def sp(x):
         b = x.shape[0]
+        if isinstance(x, DTensor):
+            return _split_placed(x, k)
         if b % k:
             raise ValueError(f"batch of {b} does not split into {k} microbatches")
         return x.reshape(k, b // k, *x.shape[1:])
 
     return {name: sp(v) for name, v in batch.items()}
+
+
+class MicrobatchSplitError(ValueError):
+    """A placed batch whose per-device rows the microbatch count does not
+    divide.  The reference splits the global batch and lets GSPMD lay out
+    the microbatches; the port splits each device's rows, so such a point
+    (``dp * microbatches`` above the batch) cannot be laid out here."""
+
+
+def _split_placed(x: DTensor, k: int) -> DTensor:
+    from torch.distributed.tensor import Shard
+
+    local = x.to_local()
+    bl = local.shape[0]
+    if bl % k:
+        raise MicrobatchSplitError(
+            f"a device's batch of {bl} does not split into {k} microbatches")
+    pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in x.placements]
+    shape = (k, x.shape[0] // k, *x.shape[1:])
+    local = local.reshape(k, bl // k, *local.shape[1:])
+    stride = (shape[1] * x.stride(0), *x.stride())
+    return DTensor.from_local(local, x.device_mesh, pl, shape=shape, stride=stride,
+                              run_check=False)
 
 
 def value_and_grad(loss_fn, params, batch):

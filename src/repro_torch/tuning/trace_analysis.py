@@ -21,7 +21,20 @@ included.  Over that trace it reports:
   alias, the bytes beyond what the inputs and results hold at the peak.
   ``argument_B + temp_B + output_B - alias_B`` is the peak, as the
   reference's ``dryrun.py`` sums ``memory_analysis()``;
-* collectives by kind, from the c10d functional ops in the trace.
+* collectives by kind, from the c10d functional ops in the trace, each
+  with its result's bytes (the reference reads the HLO's result shapes).
+
+On a mesh of more than one device the step's tensors are ``DTensor``s over
+a fake process group (``launch/mesh.py``) holding ``meta`` shards, and the
+counts are one device's: an op on DTensors is left to DTensor
+(``NotImplemented``), which runs it again on the local shards, and that
+call is counted, at its local shapes.  DTensor's sharding propagation runs
+ops of its own at the global shapes (the op again on fake tensors, a
+decomposition on ``meta`` stand-ins), and those are not counted: an op
+reached from inside DTensor's propagation modules, or under a
+``FakeTensorMode``, runs uncounted, and so does host bookkeeping on the CPU
+(no ``meta`` tensor in or out).  A redistribute shows as the c10d op it
+issues.  Argument and result bytes are the local shards' storage.
 
 Unlike HLO's cost analysis the trace counts every layer of the python
 layer loop, so the whole depth is traced.  Two things keep it quick: the
@@ -37,6 +50,7 @@ but they do not run at the same time either).
 """
 from __future__ import annotations
 
+import sys
 import time
 import weakref
 from collections import defaultdict
@@ -44,6 +58,7 @@ from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_unflatten
 from torch.utils.flop_counter import flop_registry
@@ -117,6 +132,50 @@ class _Shape:
     def make(self) -> torch.Tensor:
         return torch.empty_strided(self.shape, self.stride, dtype=self.dtype,
                                    device="meta")
+
+
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
+
+#: DTensor's sharding propagation: what runs from these modules computes
+#: layouts at the global shapes, not the step's work
+_PROPAGATION = ("torch/distributed/tensor/_sharding_prop.py",
+                "torch/distributed/tensor/_decompositions.py")
+
+
+def _in_propagation() -> bool:
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.replace("\\", "/").endswith(_PROPAGATION):
+            return True
+        f = f.f_back
+    return False
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank; any other tensor itself."""
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _layout(t: torch.Tensor) -> tuple:
+    """A tensor argument's layout: a DTensor's global shape and its
+    placements on its mesh (so its shard's layout)."""
+    if isinstance(t, DTensor):
+        return (t.shape, t.stride(), t.dtype, t.device_mesh, tuple(t.placements))
+    return (t.shape, t.stride(), t.dtype)
+
+
+class _Wrap:
+    """What makes a replayed shard the DTensor a recorded call returned."""
+
+    __slots__ = ("mesh", "placements", "shape", "stride")
+
+    def __init__(self, t: DTensor):
+        self.mesh, self.placements = t.device_mesh, tuple(t.placements)
+        self.shape, self.stride = t.shape, t.stride()
+
+    def make(self, local: torch.Tensor) -> DTensor:
+        return DTensor.from_local(local, self.mesh, self.placements, shape=self.shape,
+                                  stride=self.stride, run_check=False)
 
 
 def _key(obj):
@@ -209,6 +268,7 @@ class Tracer(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._quiet = False
+        self._placed = False  # a DTensor op was seen: propagation may run
 
     # -- storage bookkeeping ---------------------------------------------------
     def _free(self, key: int) -> None:
@@ -216,8 +276,9 @@ class Tracer(TorchDispatchMode):
         self._refs.pop(key, None)
 
     def register(self, t: torch.Tensor) -> None:
-        """Count ``t``'s storage as live until it is freed (once)."""
-        st = t.untyped_storage()
+        """Count ``t``'s storage (a DTensor's: its shard's) as live until it
+        is freed (once)."""
+        st = _local(t).untyped_storage()
         key = st._cdata
         if key in self._live:
             return
@@ -264,8 +325,8 @@ class Tracer(TorchDispatchMode):
     def repeat(self, fn, args):
         # the same shapes and the same non-tensor objects (a repeat's slice
         # of the batch differs from the first one only by its offset)
-        key = (fn, tuple((a.shape, a.stride(), a.dtype) if isinstance(a, torch.Tensor)
-                         else id(a) for a in tree_flatten(args)[0]))
+        key = (fn, tuple(_layout(a) if isinstance(a, torch.Tensor) else id(a)
+                         for a in tree_flatten(args)[0]))
         rec = self._records.get(key)
         if rec is None:  # the first call runs unrecorded: what it leaves
             self._records[key] = False  # behind (a cached table) stays out
@@ -284,39 +345,56 @@ class Tracer(TorchDispatchMode):
             leaves, spec = tree_flatten(out)
             made, first = [], {}
             for i, t in enumerate(leaves):
-                sk = t.untyped_storage()._cdata if isinstance(t, torch.Tensor) else None
+                loc = _local(t) if isinstance(t, torch.Tensor) else None
+                sk = loc.untyped_storage()._cdata if loc is not None else None
                 if sk is None or sk in before_call or sk not in self._live:
-                    made.append((t, None, 0))
+                    made.append((t, None, 0, None))
                 else:
                     j = first.setdefault(sk, i)
-                    made.append((_Shape(t), None if j == i else j, t.storage_offset()))
+                    made.append((_Shape(loc), None if j == i else j, loc.storage_offset(),
+                                 _Wrap(t) if isinstance(t, DTensor) else None))
             self._records[key] = (delta, peak, made, spec)
             return out
         delta, peak, made, spec = rec
         _merge(self.stats, delta)
         self.peak = max(self.peak, self.live + peak)
-        leaves = []
+        leaves, locs = [], []
         self._quiet = True
         try:
-            for m, j, offset in made:
+            for m, j, offset, wrap in made:
                 if not isinstance(m, _Shape):
                     leaves.append(m)
-                elif j is None:
-                    leaves.append(m.make())
-                    self.register(leaves[-1])
+                    locs.append(None)
+                    continue
+                if j is None:
+                    loc = m.make()
+                    self.register(loc)
                 else:
-                    leaves.append(leaves[j].as_strided(m.shape, m.stride, offset))
+                    loc = locs[j].as_strided(m.shape, m.stride, offset)
+                locs.append(loc)
+                leaves.append(loc if wrap is None else wrap.make(loc))
         finally:
             self._quiet = False
         return tree_unflatten(leaves, spec)
 
     # -- every op ----------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if DTensor in types or any(issubclass(t, DTensor) for t in types):
+            self._placed = True
+            return NotImplemented  # DTensor runs it again on the local shards
         kwargs = kwargs or {}
-        if self._quiet:
-            return func(*args, **kwargs)
-        s = self.stats
-        s.ops += 1
+        if (self._quiet or torch._C._get_dispatch_mode(_FAKE) is not None
+                or (self._placed and _in_propagation())):
+            return func(*args, **kwargs)  # a replay, or DTensor's global shapes
+        ins = _tensors(args, [])
+        _tensors(list(kwargs.values()), ins)
+        if not any(t.device.type == "meta" for t in ins):
+            if ins:  # host bookkeeping (DTensor's index arithmetic), not the step's
+                return func(*args, **kwargs)
+            out = func(*args, **kwargs)  # a factory: the step's if it made meta
+            if not any(t.device.type == "meta" for t in _tensors(out, [])):
+                return out
+            return self._account(func, "pure", args, kwargs, ins, out, 0)
         kind = _op_kind(func)
         flops = 0
         if kind == "pure":
@@ -340,14 +418,17 @@ class Tracer(TorchDispatchMode):
             count = flop_registry.get(func._overloadpacket)
             if count is not None:
                 flops = count(*args, **kwargs, out_val=out)
+        return self._account(func, kind, args, kwargs, ins, out, flops)
+
+    def _account(self, func, kind, args, kwargs, ins, out, flops):
+        s = self.stats
+        s.ops += 1
         s.flops += flops
         outs = _tensors(out, [])
         if kind == "pure":
             for t in outs:
                 self.register(t)
         if kind != "view" and func._overloadpacket.__name__ not in _NO_TRAFFIC:
-            ins = _tensors(args, [])
-            _tensors(list(kwargs.values()), ins)
             b = _nbytes(ins) + _nbytes(outs)
             tag = self._tag()
             if tag is None:
@@ -368,7 +449,7 @@ def _storages(tree) -> Dict[int, int]:
     out = {}
     for t in tree_flatten(tree)[0]:
         if isinstance(t, torch.Tensor):
-            st = t.untyped_storage()
+            st = _local(t).untyped_storage()
             out[st._cdata] = st.nbytes()
     return out
 

@@ -308,12 +308,20 @@ def test_the_record_has_the_reference_keys():
 
 
 def test_analyze_cell_on_a_full_config_skips_and_refuses_more_chips():
+    """(Named for what it held before the port reached more than one card.)
+    A cell the shape does not apply to is skipped at any mesh; more chips
+    and two pods are the reference's meshes now (their traces are in
+    ``test_torch_multichip_dryrun.py``)."""
     rec = dryrun.analyze_cell("qwen2-0.5b", "long_500k")
     assert rec["skipped"] and "quadratic" in rec["skip_reason"]
-    with pytest.raises(NotImplementedError, match="A14"):
-        dryrun.analyze_cell("qwen2-0.5b", "decode_32k", chips_per_pod=256)
-    with pytest.raises(NotImplementedError, match="A14"):
-        dryrun.analyze_cell("qwen2-0.5b", "decode_32k", multi_pod=True)
+    for kw in ({"chips_per_pod": 256}, {"chips_per_pod": 256, "multi_pod": True}):
+        rec = dryrun.analyze_cell("qwen2-0.5b", "long_500k", **kw)
+        assert rec["skipped"] and rec["multi_pod"] == kw.get("multi_pod", False)
+    bc = BASELINE.replace(log2_dp=3)
+    assert dryrun.build_cell_mesh(bc, chips_per_pod=256).shape == {"data": 8, "model": 32}
+    assert dryrun.build_cell_mesh(bc, multi_pod=True, chips_per_pod=256).shape == \
+        {"pod": 2, "data": 8, "model": 32}
+    assert dryrun.build_cell_mesh(bc).shape == {"data": 1, "model": 1}  # one card
 
 
 def test_fast_analysis_extrapolates_the_depth():

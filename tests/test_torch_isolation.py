@@ -49,6 +49,16 @@ ROOFLINE_MODULES = ("repro_torch.tuning.cost_model", "repro_torch.tuning.paramet
                     "repro_torch.benchmarks.trace_cost")
 
 
+#: more than one card: the rest of the §Perf hillclimbing, the fleet
+#: smokes, expert parallelism through a process group, and the two
+#: language-model examples
+MULTICHIP_MODULES = ("repro_torch.benchmarks.perf_iterations",
+                     "repro_torch.benchmarks.elastic_smoke",
+                     "repro_torch.benchmarks.scheduler_smoke",
+                     "repro_torch.benchmarks.ep_forward",
+                     "repro_torch.examples.serve_lm", "repro_torch.examples.train_lm")
+
+
 def _probe(names):
     code = _PROBE.format(src=str(ROOT / "src"), root=str(ROOT), names=names)
     return subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -83,7 +93,7 @@ def test_port_has_the_expected_modules():
                  "repro_torch.runtime.fault_tolerance", "repro_torch.train.train_step",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
                  "repro_torch.models.layers", "repro_torch.models.encdec",
-                 *PAPER_MODULES, *ROOFLINE_MODULES):
+                 *PAPER_MODULES, *ROOFLINE_MODULES, *MULTICHIP_MODULES):
         assert must in MODULES
 
 
@@ -97,6 +107,13 @@ def test_every_port_module_imports_without_jax_or_reference():
 
 @pytest.mark.parametrize("name", PAPER_MODULES)
 def test_paper_module_imports_without_jax_or_reference(name):
+    out = _probe([name])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean 1"
+
+
+@pytest.mark.parametrize("name", MULTICHIP_MODULES)
+def test_multichip_module_imports_without_jax_or_reference(name):
     out = _probe([name])
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean 1"

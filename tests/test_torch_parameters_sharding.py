@@ -190,8 +190,10 @@ def test_shard_hint_is_the_identity_on_one_card():
     assert TS.shard_hint(x, ("batch", "embed")) is x  # outside active_rules
     with TS.active_rules(TS.ShardingRules(single_device_mesh())):
         assert TS.shard_hint(x, ("batch", "embed")) is x
+    # a larger mesh places (test_torch_sharding_placement.py); rules that
+    # describe one without its DeviceMesh cannot
     with TS.active_rules(TS.ShardingRules(_Mesh(*MESHES["16x16"]))):
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(ValueError, match="DeviceMesh"):
             TS.shard_hint(x, ("batch", "embed"))
     with TS.active_rules(None):
         assert TS.shard_hint(x, ("batch",)) is x

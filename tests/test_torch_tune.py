@@ -30,12 +30,14 @@ def _record(bc):
             "roofline": {"throughput_tok_s": value}}
 
 
-def _stub(monkeypatch, name, calls):
+def _stub(monkeypatch, name, calls, meshes=None):
     mod = types.ModuleType(name)
 
     def analyze_cell(arch, shape_name, *, multi_pod=False, bc=None, chips_per_pod=1,
                      fast=False):
         calls.append(bc)
+        if meshes is not None:
+            meshes.append((multi_pod, chips_per_pod))
         return _record(bc)
 
     mod.analyze_cell = analyze_cell
@@ -102,11 +104,38 @@ def test_a_second_run_from_the_memo_cache_evaluates_nothing(tmp_path, monkeypatc
     assert "[tune] best throughput" in capsys.readouterr().out
 
 
-def test_multi_pod_is_not_ported():
+def test_multi_pod_is_not_ported(monkeypatch):
+    """(Named for what it held before the port reached more than one card.)
+    ``--multi-pod`` now runs: two pods of ``--chips-per-pod`` chips reach
+    the analysis, and the space has the mesh dims."""
     import repro_torch.launch.tune as pt
 
-    with pytest.raises(NotImplementedError, match="A14"):
-        pt.main(_argv("random", 2, "--multi-pod"))
+    calls, meshes = [], []
+    _stub(monkeypatch, "repro_torch.launch.dryrun", calls, meshes)
+    hist = pt.main(_argv("random", 2, "--multi-pod", "--chips-per-pod", "256"))
+    assert len(hist.evals) == 2 and set(meshes) == {(True, 256)}
+    assert set(MESH_DIMS) <= set(hist.evals[0].point)
+
+
+@pytest.mark.parametrize("algo,budget", [("ga", 10), ("bo", 9)])
+def test_history_at_a_pod_equals_the_reference(algo, budget, monkeypatch):
+    """At the reference's 256-chip pod the port's CLI gives the reference's
+    history on the reference's own space, mesh dims included (its default)."""
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    import repro.launch.tune as rt
+    import repro_torch.launch.tune as pt
+
+    monkeypatch.setattr(rt, "RooflineEvaluator",
+                        functools.partial(rt.RooflineEvaluator, hbm_bytes=80e9))
+    ours_calls, ref_calls, meshes = [], [], []
+    _stub(monkeypatch, "repro_torch.launch.dryrun", ours_calls, meshes)
+    _stub(monkeypatch, "repro.launch.dryrun", ref_calls)
+    ours = pt.main(_argv(algo, budget, "--chips-per-pod", "256"))
+    ref = rt.main(_argv(algo, budget))
+    assert _trace(ours) == _trace(ref)
+    assert [c.__dict__ for c in ours_calls] == [c.__dict__ for c in ref_calls]
+    assert set(meshes) == {(False, 256)}
+    assert {d for d in MESH_DIMS} <= set(ours.evals[0].point)
 
 
 def test_a_real_run_traces_one_card(tmp_path, capsys):
