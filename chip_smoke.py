@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases env,build,train,paper,host_knobs
     python3 chip_smoke.py --phases env,build,roofline
     python3 chip_smoke.py --phases env,build,multichip
+    python3 chip_smoke.py --phases env,build,train_families
 
 Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
@@ -48,6 +49,14 @@ The ``multichip`` phase runs the dry run and the tuning CLI at a 256-chip
 pod and across two pods (device-free: DTensors over a fake process group,
 on this host), and expert parallelism on the card through a one-rank NCCL
 group (``repro_torch.benchmarks.ep_forward``), each part in a child process.
+The ``train_families`` phase trains the two scan families through
+``repro_torch.launch.train``, f32, 2 x 2048 tokens: rwkv6-3b at its
+published width and depth (K1 and K5 forward) and one Jamba v0.1 period at
+the width of the reference's ``--d-model 1024`` (K1, K2 and K4 forward),
+each under the cheapest remat mode that fits: falling loss, launches,
+step time, peak bytes, the forward / backward / optimizer split with the
+scans' oracle recompute, each scan call against its plain version, and
+the kernel path against the chunked oracles.
 Each phase prints JSON lines; any failure
 ends the run with a non-zero exit code.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -1115,55 +1124,124 @@ def _host_seconds(fn, reps):
     return (time.perf_counter() - t0) / reps
 
 
-def _train_split(cfg, B, S, device, reps=3):
-    """Forward, backward and optimizer seconds of one train step (host
-    clock, each part ended by a synchronise; the median of ``reps`` steps
-    after a warm-up step), and the seconds of the oracle backwards that the
-    kernels' forwards pair with (``_RefVJP``: attention and RMSNorm
-    recomputed through their oracles), at the step's shapes."""
-    import statistics
-
+@contextlib.contextmanager
+def _oracle_clock(events, step=lambda: 0):
+    """While active, CUDA events around every oracle recompute that a
+    kernel's forward pairs with (``_RefVJP.backward``, ``kernels/ops.py``),
+    appended to ``events`` as ``(kernel, step(), start, stop)``."""
     import torch
 
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-    from repro_torch.kernels import ref
-    from repro_torch.models.model import build_model
-    from repro_torch.models.params import split_params, tree_leaves, tree_map
-    from repro_torch.models.runtime import Runtime
-    from repro_torch.optim.optimizer import OptimizerConfig, adamw_init, adamw_update
-    from repro_torch.train.train_step import make_loss_fn
+    from repro_torch.kernels import ops
 
-    model = build_model(cfg)
+    backward = ops._RefVJP.backward
+
+    def timed(ctx, g):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = backward(ctx, g)
+        e1.record()
+        events.append((ctx.kernel, step(), e0, e1))
+        return out
+
+    ops._RefVJP.backward = staticmethod(timed)
+    try:
+        yield
+    finally:
+        ops._RefVJP.backward = staticmethod(backward)
+
+
+def _oracle_ms(events, step=None):
+    """Device ms of the oracle recomputes in ``events`` by kernel (of one
+    step, or of all)."""
+    import torch
+
+    torch.cuda.synchronize()
+    out = {}
+    for kernel, at, e0, e1 in events:
+        if step is None or at == step:
+            out[kernel] = out.get(kernel, 0.0) + e0.elapsed_time(e1)
+    return out
+
+
+def _oracle_calls(events, step=None):
+    out = {}
+    for kernel, at, *_ in events:
+        if step is None or at == step:
+            out[kernel] = out.get(kernel, 0) + 1
+    return out
+
+
+@contextlib.contextmanager
+def _step_parts(parts):
+    """While active, the seconds of each train step's forward, of its
+    forward and backward together, and of its optimizer update (host
+    clock, each ended by a synchronise), appended to ``parts``: the train
+    step (``train/train_step.py``) reaches these through its module."""
+    import torch
+
+    from repro_torch.train import train_step as ts
+
+    saved = ts.make_loss_fn, ts.value_and_grad, ts.adamw_update
+
+    def synced(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    ts.make_loss_fn = lambda *a, **kw: synced(saved[0](*a, **kw), "forward")
+    ts.value_and_grad = synced(saved[1], "forward_backward")
+    ts.adamw_update = synced(saved[2], "optimizer")
+    try:
+        yield
+    finally:
+        ts.make_loss_fn, ts.value_and_grad, ts.adamw_update = saved
+
+
+def _instrumented(args, mods, tap=None):
+    """``_train_run(args, mods)`` with each step's forward / backward /
+    optimizer seconds (``_step_parts``) and the device time of its oracle
+    recomputes (``_oracle_clock``) taken as it runs, and ``tap`` (a context
+    manager) active: the run, and what was taken."""
+    rec = {"parts": {"forward": [], "forward_backward": [], "optimizer": []}, "oracle": []}
+    with _step_parts(rec["parts"]), tap or contextlib.nullcontext(), \
+            _oracle_clock(rec["oracle"], lambda: len(rec["parts"]["optimizer"])):
+        run = _train_run(args, mods)
+    return run, rec
+
+
+def _split(rec, steps):
+    """Where a step's time goes, from ``_instrumented``: the medians of the
+    forward, backward and optimizer seconds and of the oracle recomputes'
+    device ms by kernel over the steps after the first (the warm-up)."""
+    import statistics
+
+    parts, timed = rec["parts"], range(1, steps)
+    split = {"forward": [parts["forward"][i] for i in timed],
+             "backward": [parts["forward_backward"][i] - parts["forward"][i] for i in timed],
+             "optimizer": [parts["optimizer"][i] for i in timed]}
+    split = {k: statistics.median(v) for k, v in split.items()}
+    oracle = [_oracle_ms(rec["oracle"], i) for i in timed]
+    return {"seconds_median_of": len(timed), **{f"{k}_seconds": v for k, v in split.items()},
+            "step_seconds": sum(split.values()),
+            "oracle_backward_calls_per_step": _oracle_calls(rec["oracle"], 1),
+            "oracle_backward_ms_per_step": {
+                k: statistics.median(o.get(k, 0.0) for o in oracle) for k in oracle[0]}}
+
+
+def _oracle_estimates(cfg, B, S, device, backward_seconds):
+    """The attention and RMSNorm oracles' backward at one step's shapes,
+    timed alone (host clock), and their share of a step's backward."""
+    import torch
+
+    from repro_torch.kernels import ref
+
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    params, _ = split_params(model.init(gen))
-    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
-    opt = adamw_init(params, opt_cfg)
-    loss_fn = make_loss_fn(model, Runtime(compute_dtype="f32", attn_impl="cuda"))
-    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B))
-    parts = {"forward": [], "backward": [], "optimizer": []}
-    for i in range(reps + 1):
-        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, _ = loss_fn(live, batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        params, opt, _ = adamw_update(tree_map(lambda _: next(grads), live), opt, params,
-                                      opt_cfg)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        del live, loss, grads
-        if i:  # the first step is the warm-up
-            for name, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
-                parts[name].append(dt)
-    del params, opt
-    split = {name: statistics.median(v) for name, v in parts.items()}
-
     H, K, dh, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_model
 
     def leaf(*shape):
@@ -1178,14 +1256,12 @@ def _train_split(cfg, B, S, device, reps=3):
     norm_s = _host_seconds(lambda: torch.autograd.grad(
         ref.rmsnorm_ref(x, scale, cfg.norm_eps), (x, scale), gx), reps=5)
     layers = cfg.num_layers
-    return {"seconds_median_of": reps, **{f"{k}_seconds": v for k, v in split.items()},
-            "step_seconds": sum(split.values()),
-            "oracle_attention_backward_seconds_per_call": attn_s,
+    return {"oracle_attention_backward_seconds_per_call": attn_s,
             "oracle_rmsnorm_backward_seconds_per_call": norm_s,
             "oracle_attention_backward_seconds_per_step": attn_s * layers,
             "oracle_rmsnorm_backward_seconds_per_step": norm_s * (2 * layers + 1),
-            "oracle_attention_share_of_backward": attn_s * layers / split["backward"],
-            "oracle_rmsnorm_share_of_backward": norm_s * (2 * layers + 1) / split["backward"]}
+            "oracle_attention_share_of_backward": attn_s * layers / backward_seconds,
+            "oracle_rmsnorm_share_of_backward": norm_s * (2 * layers + 1) / backward_seconds}
 
 
 @contextlib.contextmanager
@@ -1256,7 +1332,7 @@ def _train_phase(cx, cfg, base_args, device):
                                  "train path ran past a kernel")
 
     # 1. the main path: 12 steps through the entry point
-    main = _train_run(base_args + ["--steps", str(TRAIN_STEPS)], mods)
+    main, rec = _instrumented(base_args + ["--steps", str(TRAIN_STEPS)], mods)
     expect(main, "main", TRAIN_STEPS, per_step)
     if not main["losses"][-1] < main["losses"][0]:
         raise AssertionError(f"train: the loss did not fall: {main['losses']}")
@@ -1270,8 +1346,10 @@ def _train_phase(cx, cfg, base_args, device):
               launches_per_step={k: v / TRAIN_STEPS for k, v in main["launches"].items()},
               report=main["report"]))
 
-    # 2. where a step's time goes
-    emit(dict(common, part="split", **_train_split(cfg, B, S, device)))
+    # 2. where a step's time goes (in the main run's steps)
+    split = _split(rec, TRAIN_STEPS)
+    emit(dict(common, part="split", **split,
+              **_oracle_estimates(cfg, B, S, device, split["backward_seconds"])))
 
     # 3. the remat modes, from the same params on the same batches; every
     # mode but none runs each layer's kernels again in its recompute
@@ -2531,6 +2609,7 @@ def kernels_line(cx):
                     "paper_launches": cx.paper_launches[name],
                     "roofline_launches": cx.roofline_launches[name],
                     "multichip_launches": cx.multichip_launches[name],
+                    "train_families_launches": cx.train_family_launches[name],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
 
@@ -3058,12 +3137,283 @@ def _multichip_body(cx, tmp, runs, t_phase):
           "ep_factor": gspmd / ep_local if ep_local else None})
 
 
+# the two scan families trained through ``repro_torch.launch.train``: its
+# flags (2 x 2048 tokens, f32 as the entry point runs, the reference
+# script's learning rate), the steps of the main run, the cuts tried in
+# order while a run does not fit one card (RWKV-6's depth; Jamba's width
+# through the reference's --d-model flag, one period), the flags of the
+# kernel path vs chunked path run (the chunked Mamba oracle keeps every
+# level of its associative scan for the backward, 22 (B, S, d_inner, 16)
+# tensors a layer: Jamba's period on it fits at d_model 512 and batch 1,
+# not at 1024 or at batch 2), and the scan each runs.  rwkv6-3b's loss
+# at lr 1e-3 rises while the learning rate warms up (20 steps) and falls
+# below its first value from step 36 on, on the kernel path and on the
+# chunked oracles alike (PERF.md, `train_families`): its main run takes 44 steps.
+TRAIN_FAMILIES = {
+    "rwkv6-3b": {"args": ["--arch", "rwkv6-3b", "--batch", "2", "--seq", "2048",
+                          "--lr", "1e-3"], "steps": 44,
+                 "cuts": ([], ["--layers", "24"], ["--layers", "16"]),
+                 "check": ["--layers", "4"], "scan": "gla_scan"},
+    "jamba-v0.1-52b": {"args": ["--arch", "jamba-v0.1-52b", "--layers", "8", "--batch", "2",
+                                "--seq", "2048", "--lr", "1e-3"], "steps": 7,
+                       "cuts": (["--d-model", "1024"], ["--d-model", "512"]),
+                       "check": ["--d-model", "512", "--batch", "1"], "scan": "ssm_scan"},
+}
+TRAIN_FAMILY_REMAT = ("none", "names", "dots", "full")  # cheapest first
+TRAIN_FAMILY_CHECK_STEPS = 3  # kernel path against chunked path
+TRAIN_FAMILY_LOSS_RTOL = 1e-3
+
+
+def _family_launches(cfg, remat):
+    """Launches of each kernel in one train step: two RMSNorms a layer and
+    the final one, each layer's mixer kernel; a remat mode but none runs
+    every layer's kernels again in its recompute."""
+    mixers = [m for m, _ in cfg.layer_plan()]
+    fwd = {"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": mixers.count("attn"),
+           "decode_attention": 0, "ssm_scan": mixers.count("mamba"),
+           "gla_scan": mixers.count("rwkv")}
+    if remat == "none":
+        return fwd
+    return {k: 2 * v - (k == "rmsnorm") for k, v in fwd.items()}
+
+
+def _gla_f64(r, k, v, w, u):
+    """RWKV-6's wkv recurrence in float64, step by step (the exact answer
+    the kernel and the plain version are measured from)."""
+    import torch
+
+    rd, kd, vd, wd, ud = (t.double() for t in (r, k, v, w, u))
+    B, S, H, dk = r.shape
+    st = torch.zeros((B, H, dk, v.shape[-1]), dtype=torch.float64, device=r.device)
+    y = torch.empty((B, S, H, v.shape[-1]), dtype=torch.float64, device=r.device)
+    for t in range(S):
+        kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
+        y[:, t] = (rd[:, t, :, :, None] * (st + ud[:, :, None] * kv)).sum(dim=2)
+        st = wd[:, t, :, :, None] * st + kv
+    return y
+
+
+def _excess(got, want, tol):
+    """How far the worst element lies past ``check_close``'s bound at
+    ``tol`` (<= 0: within it)."""
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() - (atol + rtol * w.abs())).max())
+
+
+def _at_scale(tol, scale):
+    """A scan's f32 tolerance (``TOL``: the reference tests', whose inputs
+    give outputs of order 1) with its absolute part at the output's scale:
+    an f32 recurrence's rounding grows with the size of its terms, and at
+    2048 steps of slow decay an RWKV-6 state sums to outputs near 2,600."""
+    atol, rtol = tol if isinstance(tol, tuple) else (tol, tol)
+    return atol * max(1.0, scale), rtol
+
+
+@contextlib.contextmanager
+def _tap_scan(name, found, calls):
+    """While active, each of the first ``calls`` calls that the dispatch
+    layer makes of the scan kernel ``name`` (one step's forward) is held
+    against the kernel's plain version on the same inputs (``check_close``
+    at the tolerance ``_at_scale`` gives), and both against the same
+    recurrence in float64 (the last call: a float64 recurrence on the card
+    takes seconds): ``found`` gathers the calls, the largest distances,
+    the largest |output| and the worst excess over the tolerance as the
+    reference tests state it (positive: outside)."""
+    from repro_torch.kernels import ops
+
+    attr = _KernelClock.MODS[name]
+    mod = getattr(ops, attr)
+    kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    exact = {"gla_scan": _gla_f64, "ssm_scan": _ssm_f64}[name]
+    tol = TOL[name]["f32"]
+
+    def tapped(*args, **kw):
+        out = kernel(*args, **kw)
+        if found["calls"] < calls:
+            want = plain(*args)
+            scale = float(want.abs().max())
+            check_close(name, f"train step, call {found['calls']} {kw}", out, want,
+                        _at_scale(tol, scale))
+            worst = {"kernel_vs_plain": max_err(out, want), "max_abs_plain": scale,
+                     "excess_vs_plain_unscaled": _excess(out, want, tol)}
+            if found["calls"] == calls - 1:  # the last layer's: the exact answer
+                ref = exact(*args)
+                worst.update(kernel_vs_f64=float((out.double() - ref).abs().max()),
+                             plain_vs_f64=float((want.double() - ref).abs().max()))
+            for key, value in worst.items():
+                found[key] = max(found.get(key, -math.inf), value)
+            found["calls"] += 1
+        return out
+
+    setattr(ops, attr, types.SimpleNamespace(**{name: tapped}))
+    try:
+        yield
+    finally:
+        setattr(ops, attr, mod)
+
+
+def _family_fit(name, spec, mods):
+    """The main run: the first cut whose cheapest remat mode fits one card
+    trains ``spec["steps"]`` steps through the entry point, with each step's
+    forward / backward / optimizer seconds, the oracle recomputes' device
+    time and the first step's scan calls against the plain version taken
+    as it runs.  Every try that ran out of device memory is kept with the
+    allocator's message."""
+    import torch
+
+    from repro_torch.launch import train
+
+    tried = []
+    for cut in spec["cuts"]:
+        for mode in TRAIN_FAMILY_REMAT:
+            args = spec["args"] + cut + ["--steps", str(spec["steps"]), "--remat", mode]
+            cfg = train.model_config(train.parse_args(args))
+            found = {"calls": 0}
+            tap = _tap_scan(spec["scan"], found, _family_launches(cfg, "none")[spec["scan"]])
+            try:
+                run, rec = _instrumented(args, mods, tap)
+            except torch.cuda.OutOfMemoryError as e:
+                tried.append({"cut": cut, "remat": mode,
+                              "out_of_memory": str(e).splitlines()[0][:300]})
+                continue
+            tried.append({"cut": cut, "remat": mode, "fits": True})
+            return args, cfg, mode, run, dict(rec, tap=found), tried
+    raise AssertionError(f"train_families {name}: no cut and remat mode fits one card: {tried}")
+
+
+def _family_check(cfg, mode, B, S, lr):
+    """TRAIN_FAMILY_CHECK_STEPS steps of ``cfg`` on the kernel path (the
+    entry point's runtime) and on the chunked oracles, from the same
+    weights and batches: each step's loss within TRAIN_FAMILY_LOSS_RTOL."""
+    import gc
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.optim.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    steps = TRAIN_FAMILY_CHECK_STEPS
+    losses = {}
+    for path, rt in (("kernel", train.runtime(True, mode)),
+                     ("chunked", Runtime(compute_dtype="f32", attn_impl="ref",
+                                         scan_impl="chunked", remat=mode))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer = Trainer(cfg, OptimizerConfig(learning_rate=lr, warmup_steps=20,
+                                               total_steps=steps),
+                          DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B),
+                          TrainerConfig(steps=steps, log_every=0, device="cuda"), rt=rt)
+        losses[path] = [m["loss"] for m in trainer.run()]
+        del trainer
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["chunked"])]
+    if len(rel) != steps or max(rel) > TRAIN_FAMILY_LOSS_RTOL:
+        raise AssertionError(f"train_families {cfg.name}: kernel path {losses['kernel']} vs "
+                             f"chunked path {losses['chunked']} (rtol {TRAIN_FAMILY_LOSS_RTOL})")
+    return {"layers": cfg.num_layers, "steps": steps, "losses_kernel": losses["kernel"],
+            "losses_chunked": losses["chunked"], "max_rel_diff": max(rel),
+            "tolerance_rel": TRAIN_FAMILY_LOSS_RTOL}
+
+
+def phase_train_families(cx):
+    """Training the two scan families on the card through
+    ``repro_torch.launch.train``, f32, 2 x 2048 tokens: rwkv6-3b at full
+    width and depth (K1 + K5 forward), one Jamba v0.1 period at the width
+    ``--d-model`` gives (K1 + K2 + K4 forward; the MoE's 16 experts stay
+    14,336 wide), each under the cheapest remat mode that fits.  Each run:
+    a finite loss, lower at the last step than at the first; launches a
+    step as the model's layers say; the median step, tokens/s and peak
+    bytes; forward / backward / optimizer seconds and the scans' oracle
+    recompute inside the backward (CUDA events around each
+    ``_RefVJP.backward``); each scan call of the first step's forward
+    against the kernel's plain version; and three steps on the kernel path
+    against the chunked oracles from the same weights."""
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import split_params, tree_leaves
+
+    cx.model = cx.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    mods = _kernel_wrappers()
+    cx.train_family_launches = {k: 0 for k in mods}
+    t_phase = time.perf_counter()
+    for name, spec in TRAIN_FAMILIES.items():
+        t0 = time.perf_counter()
+        args, cfg, mode, main, rec, tried = _family_fit(name, spec, mods)
+        targs = train.parse_args(args)
+        B, S, steps, scan = targs.batch, targs.seq, spec["steps"], spec["scan"]
+        n_params = sum(p.numel() for p in tree_leaves(
+            split_params(build_model(cfg).init(dryrun.MetaGenerator()))[0]))
+        common = {"phase": "train_families", "gpu": cx.smi, "model": name,
+                  "layers": cfg.num_layers, "d_model": cfg.d_model, "params": n_params,
+                  "dtype": "f32", "batch": B, "seq": S, "remat": mode}
+        emit(dict(common, part="fit", args=args, tried=tried))
+
+        per_step = _family_launches(cfg, mode)
+        want = {k: v * steps for k, v in per_step.items()}
+        if main["launches"] != want:
+            raise AssertionError(f"train_families {name}: launches {main['launches']} != "
+                                 f"{want}: the train path ran past a kernel")
+        for k, v in main["launches"].items():
+            cx.train_family_launches[k] += v
+        med = statistics.median(main["seconds"][1:])
+        emit(dict(common, part="main", steps=steps, losses=main["losses"],
+                  grad_norms=main["grad_norms"], step_seconds=main["seconds"],
+                  median_step_seconds=med, median_of=steps - 1,
+                  tokens_per_s=B * S / med, peak_memory_bytes=main["peak_memory_bytes"],
+                  launches=main["launches"], launches_per_step=per_step,
+                  report=main["report"]))
+        if not main["losses"][-1] < main["losses"][0]:
+            raise AssertionError(f"train_families {name}: the loss did not fall: "
+                                 f"{main['losses']}")
+
+        # where a step's time goes
+        split = _split(rec, steps)
+        emit(dict(common, part="split", **split, scan_oracle_share_of_backward=(
+            split["oracle_backward_ms_per_step"].get(scan, 0.0) / 1e3
+            / split["backward_seconds"])))
+
+        # each scan call of the first step's forward against the plain version
+        tap = rec["tap"]
+        emit(dict(common, part="kernel_vs_plain", kernel=scan, tolerance=TOL[scan]["f32"],
+                  tolerance_at_scale=_at_scale(TOL[scan]["f32"], tap["max_abs_plain"]),
+                  **tap))
+        if tap["calls"] != _family_launches(cfg, "none")[scan]:
+            raise AssertionError(f"train_families {name}: {tap['calls']} {scan} calls held "
+                                 "to the plain version")
+        del main, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the kernel path against the chunked oracles, from the same weights
+        cargs = train.parse_args(args + spec["check"])
+        ccfg = train.model_config(cargs)
+        emit(dict(common, part="kernel_vs_chunked", d_model_checked=ccfg.d_model,
+                  batch_checked=cargs.batch,
+                  **_family_check(ccfg, mode, cargs.batch, cargs.seq, cargs.lr)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(dict(common, part="seconds", seconds=round(time.perf_counter() - t0, 1)))
+    emit({"phase": "train_families", "launches": cx.train_family_launches,
+          "seconds": round(time.perf_counter() - t_phase, 1)})
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "parity": phase_parity, "serve": phase_serve, "train": phase_train,
           "tuning_db": phase_tuning_db,
           "sweep": phase_sweep, "bo": phase_bo, "service": phase_service,
           "families": phase_families, "paper": phase_paper, "host_knobs": phase_host_knobs,
-          "roofline": phase_roofline, "multichip": phase_multichip}
+          "roofline": phase_roofline, "multichip": phase_multichip,
+          "train_families": phase_train_families}
 
 
 def main(argv=None):

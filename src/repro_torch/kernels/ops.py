@@ -89,10 +89,12 @@ def _tuned(db, kernel: str, dims: dict, defaults: dict) -> dict:
 
 
 class _RefVJP(torch.autograd.Function):
-    """Kernel forward, reference-recompute backward."""
+    """Kernel forward, reference-recompute backward.  ``ctx.kernel`` names
+    the kernel, for whoever times the recompute."""
 
     @staticmethod
-    def forward(ctx, kernel_fn, ref_fn, *args):
+    def forward(ctx, kernel, kernel_fn, ref_fn, *args):
+        ctx.kernel = kernel
         ctx.ref_fn = ref_fn
         ctx.save_for_backward(*args)
         return kernel_fn(*args)
@@ -103,16 +105,16 @@ class _RefVJP(torch.autograd.Function):
                 for a in ctx.saved_tensors]
         with torch.enable_grad():
             out = ctx.ref_fn(*args)
-        wanted = [a for a, need in zip(args, ctx.needs_input_grad[2:]) if need]
+        wanted = [a for a, need in zip(args, ctx.needs_input_grad[3:]) if need]
         grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
-        return (None, None, *(next(grads) if need else None
-                              for need in ctx.needs_input_grad[2:]))
+        return (None, None, None, *(next(grads) if need else None
+                                    for need in ctx.needs_input_grad[3:]))
 
 
-def _ref_vjp(kernel_fn, ref_fn):
+def _ref_vjp(kernel, kernel_fn, ref_fn):
     def fn(*args):
         if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-            return _RefVJP.apply(kernel_fn, ref_fn, *args)
+            return _RefVJP.apply(kernel, kernel_fn, ref_fn, *args)
         return kernel_fn(*args)
 
     return fn
@@ -160,7 +162,7 @@ def attention(
     ref_fn = functools.partial(
         ref.attention_ref, causal=causal, window=window, scale=scale
     )
-    return _ref_vjp(kernel_fn, ref_fn)(q, k, v)
+    return _ref_vjp("flash_attention", kernel_fn, ref_fn)(q, k, v)
 
 
 def decode_attention(
@@ -214,7 +216,7 @@ def rmsnorm(
                         {"block_rows": block_rows})["block_rows"]
     kernel_fn = functools.partial(_rms_mod.rmsnorm, eps=eps, block_rows=block_rows)
     ref_fn = functools.partial(ref.rmsnorm_ref, eps=eps)
-    return _ref_vjp(kernel_fn, ref_fn)(x, scale)
+    return _ref_vjp("rmsnorm", kernel_fn, ref_fn)(x, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -250,7 +252,7 @@ def ssm_scan(
             x, dt, A, B_in, C_in, D_skip)
     kernel_fn = functools.partial(_ssm_mod.ssm_scan, chunk=chunk, block_d=block_d)
     ref_fn = lambda *a: ref.ssm_scan_chunked_ref(*a, chunk=chunk)[0]
-    return _ref_vjp(kernel_fn, ref_fn)(x, dt, A, B_in, C_in, D_skip)
+    return _ref_vjp("ssm_scan", kernel_fn, ref_fn)(x, dt, A, B_in, C_in, D_skip)
 
 
 def gla_scan(
@@ -278,4 +280,4 @@ def gla_scan(
             r, k, v, w, u)
     kernel_fn = functools.partial(_gla_mod.gla_scan, chunk=chunk)
     ref_fn = lambda *a: ref.gla_scan_chunked_ref(*a, chunk=chunk)[0]
-    return _ref_vjp(kernel_fn, ref_fn)(r, k, v, w, u)
+    return _ref_vjp("gla_scan", kernel_fn, ref_fn)(r, k, v, w, u)

@@ -67,6 +67,7 @@ from repro_torch.tuning.cost_model import (
     tokens_per_step,
     weighted_collective_bytes,
 )
+from repro_torch.tuning.evaluator import provenance
 from repro_torch.tuning.parameters import BASELINE, BackendConfig
 from repro_torch.tuning.trace_analysis import TraceStats, trace
 
@@ -288,15 +289,16 @@ def analyze_cell(
     fast: bool = False,
 ) -> Dict:
     """Full dry run + roofline for one cell on ``chips_per_pod`` chips, or
-    on two pods of them (default: one card)."""
+    on two pods of them (default: one card).  Beside the reference's keys
+    the record names the torch that traced it and ``chips_per_pod``."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     ok, reason = applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
-                "skipped": True, "skip_reason": reason}
+                "skipped": True, "skip_reason": reason, **provenance(chips_per_pod)}
     mesh = build_cell_mesh(bc, multi_pod=multi_pod, chips_per_pod=chips_per_pod)
-    return analyze(cfg, shape, bc, mesh, fast=fast)
+    return {**analyze(cfg, shape, bc, mesh, fast=fast), **provenance(chips_per_pod)}
 
 
 def main(argv=None):
@@ -328,6 +330,7 @@ def main(argv=None):
         cells.append((args.arch, args.shape))
 
     results, done = [], set()
+    mine = provenance(args.chips_per_pod)
     jl = pathlib.Path(str(args.out) + ".jsonl") if args.out else None
     if jl is not None and jl.exists():  # restart-safe: skip cells already recorded
         for line in jl.read_text().splitlines():
@@ -335,7 +338,8 @@ def main(argv=None):
                 r = json.loads(line)
             except ValueError:
                 continue
-            if "error" not in r:
+            # a record of another torch or pod size is traced again
+            if "error" not in r and all(r.get(k) == v for k, v in mine.items()):
                 done.add((r["arch"], r["shape"], bool(r.get("multi_pod"))))
                 results.append(r)
 
@@ -366,7 +370,7 @@ def main(argv=None):
             except Exception as e:  # report, keep going
                 traceback.print_exc()
                 rec = {"arch": arch, "shape": shape_name, "multi_pod": mp,
-                       "error": f"{type(e).__name__}: {e}"}
+                       "error": f"{type(e).__name__}: {e}", **mine}
                 print(f"[dryrun] {tag}: FAIL {rec['error']}")
             results.append(rec)
             if jl is not None:  # incremental (restart-safe) record

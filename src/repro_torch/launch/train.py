@@ -37,7 +37,7 @@ def runtime(on_card: bool, remat: str) -> Runtime:
                    scan_impl="cuda" if on_card else "chunked", remat=remat)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--reduced", action="store_true")
@@ -59,14 +59,14 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--remat", choices=REMAT_MODES, default="none",
                     help="activation recompute policy of each layer period")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "--device cuda (the default) needs an NVIDIA GPU and none is "
-            "visible; pass --device cpu to run the oracles on the CPU")
-    on_card = args.device == "cuda"
 
+def model_config(args: argparse.Namespace):
+    """The config the flags name: ``--reduced``, then ``--d-model`` (which
+    sets ``head_dim = d_model / heads`` and ``d_ff = 4 d_model``, and
+    leaves MoE experts as they are) and ``--layers`` (whole periods), as
+    the reference package's script builds it."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -78,6 +78,17 @@ def main(argv=None):
     if args.layers:
         period = cfg.layer_period()
         cfg = dataclasses.replace(cfg, num_layers=max(period, args.layers // period * period))
+    return cfg
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda (the default) needs an NVIDIA GPU and none is "
+            "visible; pass --device cpu to run the oracles on the CPU")
+    on_card = args.device == "cuda"
+    cfg = model_config(args)
 
     opt_cfg = OptimizerConfig(learning_rate=args.lr, warmup_steps=20,
                               total_steps=args.steps)

@@ -133,13 +133,15 @@ def value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(model: Model, opt_cfg: OptimizerConfig, rt: Runtime,
-                    microbatches: int = 1, *, tuning_db=None):
+                    microbatches: int = 1, *, tuning_db=None, donate: bool = False):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``tuning_db`` attaches a :class:`~repro_torch.tuning.tundb.TuningDB`
     whose kernel configs the ops layer picks up from this build on;
     ``None`` leaves ``rt`` as it is.  The step is functional: it returns
-    new trees and leaves its inputs as they were.
+    new trees and leaves its inputs as they were, unless ``donate``: then
+    it updates params and optimizer state in place and returns them (the
+    reference's jitted step donates both).
     """
     rt = with_db(rt, tuning_db)
     loss_fn = make_loss_fn(model, rt)
@@ -163,7 +165,7 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, rt: Runtime,
                        for k in outs[0][1]}
 
         params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
-                                                      opt_cfg)
+                                                      opt_cfg, donate=donate)
         metrics = dict(metrics, **opt_metrics, loss_out=loss)
         return params, opt_state, metrics
 

@@ -8,7 +8,9 @@ deterministic data pipeline replays the identical stream.
 
 A step's ``seconds`` is its real time on the device: the device is
 synchronised before the clock is read at either end (the reference times
-an asynchronous dispatch).
+an asynchronous dispatch).  The trainer owns its params and optimizer
+state, and its step updates them in place (``donate=True``), as the
+reference's jitted step donates them.
 """
 from __future__ import annotations
 
@@ -80,7 +82,7 @@ class Trainer:
         # re-reads the runtime's TuningDB, if it has one
         self._step_fn = make_train_step(self.model, self.opt_cfg, self.rt,
                                         microbatches=self.tcfg.microbatches,
-                                        tuning_db=self.rt.tuning_db)
+                                        tuning_db=self.rt.tuning_db, donate=True)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -12,6 +12,10 @@
   :class:`~repro_torch.tuning.cache.JsonCacheStore` (atomic writes,
   cross-process file locking), so concurrent tuning runs merge their
   analyses instead of clobbering each other; its keys are the reference's.
+  A record also names the torch that traced it and its pod size
+  (``provenance``): DTensor lays a mesh out differently from one torch to
+  the next, and the key names no pod size, so an entry that names another
+  torch or pod size, or none, is traced again and overwritten.
 
 Both implement the explicit evaluator protocol
 (``repro_torch.tuning.objective.Evaluator``): ``__call__(point) -> (value,
@@ -67,6 +71,14 @@ def _wait(out, args) -> None:
             torch.cuda.synchronize(dev)
 
 
+def provenance(chips_per_pod: int) -> dict:
+    """What a dry-run record depends on beyond its key: the torch whose
+    sharding propagation laid the step out, and the chips of a pod."""
+    import torch
+
+    return {"torch": torch.__version__, "chips_per_pod": chips_per_pod}
+
+
 class RooflineEvaluator(Evaluator):
     def __init__(
         self,
@@ -100,6 +112,14 @@ class RooflineEvaluator(Evaluator):
             d["analysis"] = "fast"
         return json.dumps(d, sort_keys=True)
 
+    def _current(self, rec: Optional[dict]) -> Optional[dict]:
+        """``rec`` if this process's torch and pod size made it, else
+        ``None`` (entries written before records named them included)."""
+        mine = provenance(self.chips_per_pod)
+        if rec is None or any(rec.get(k) != v for k, v in mine.items()):
+            return None
+        return rec
+
     def __call__(self, point: Dict,
                  fidelity: Optional[float] = None) -> Tuple[float, dict]:
         from repro_torch.launch.dryrun import analyze_cell  # lazy: the model stack
@@ -109,20 +129,22 @@ class RooflineEvaluator(Evaluator):
         fast = fidelity is not None and fidelity < 1.0
         bc = config_from_point(point, self.base)
         key = self._key(bc, fast=fast)
-        rec = self._cache.get(key)
+        rec = self._current(self._cache.get(key))
         if rec is None:
             # in-memory miss: another host sharing this store may have
             # analysed it since __init__ — a locked file read is far cheaper
             # than a trace.  Merge every entry we don't already hold: each
             # concurrent-host record then costs one file read in all
             for k, v in self.store.load().items():
-                self._cache.setdefault(k, v)
-            rec = self._cache.get(key)
+                if self._current(self._cache.get(k)) is None:
+                    self._cache[k] = v
+            rec = self._current(self._cache.get(key))
         if rec is None:
-            rec = analyze_cell(
+            # a miss, or an entry of another torch or pod size: trace anew
+            rec = {**provenance(self.chips_per_pod), **analyze_cell(
                 self.arch, self.shape_name, multi_pod=self.multi_pod,
                 bc=bc, chips_per_pod=self.chips_per_pod, fast=fast,
-            )
+            )}
             self._cache[key] = rec
             # merge-on-write under the store's file lock: concurrent tuning
             # runs sharing one cache file union their entries

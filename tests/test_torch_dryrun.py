@@ -363,7 +363,7 @@ def _stub_dryrun(monkeypatch, fn):
 
 def test_roofline_reconsults_store_before_tracing(tmp_path, monkeypatch):
     from repro_torch.tuning.cache import JsonCacheStore
-    from repro_torch.tuning.evaluator import RooflineEvaluator
+    from repro_torch.tuning.evaluator import RooflineEvaluator, provenance
     from repro_torch.tuning.parameters import config_from_point
 
     def _no_trace(*a, **k):
@@ -374,8 +374,10 @@ def test_roofline_reconsults_store_before_tracing(tmp_path, monkeypatch):
     ev = RooflineEvaluator("qwen2-0.5b", "train_4k", cache_path=cache)
     assert ev._cache == {}
     point = {"block_q": 256}
+    # an entry of this torch and pod size (one written by another is traced
+    # again: tests/test_torch_train_families.py)
     rec = {"skipped": False, "memory": {"per_device_B": 1.0},
-           "roofline": {"throughput_tok_s": 123.0}}
+           "roofline": {"throughput_tok_s": 123.0}, **provenance(1)}
     JsonCacheStore(cache).put(ev._key(config_from_point(point)), rec)
     value, meta = ev(point)
     assert value == 123.0 and len(ev._cache) == 1
