@@ -25,10 +25,11 @@ oracles backward), checks that the loss falls, that the remat modes and
 microbatching agree, and that failure + resume through the array
 checkpointer replays the loss stream.
 The ``bo`` phase runs the same loop with Bayesian optimisation, recording
-every measurement into a transfer corpus, and times one GP fit + ranking
-on the CPU and on the card; the ``service`` phase starts a measurement
-worker on the card and the tuning service as processes of their own and
-runs one BO job through them.  The ``families`` phase runs the other
+every measurement into a transfer corpus, times one GP fit + ranking
+on the CPU and on the card, and runs the port's async-loop gate
+(``perf_iterations --async-loop --check``) as a child; the ``service``
+phase starts a measurement worker on the card and the tuning service as
+processes of their own and runs one BO job through them.  The ``families`` phase runs the other
 model families at full width (rwkv6-3b, one period of Jamba v0.1,
 minicpm3-4b, whisper-base) through the kernels, K4 and K5 included,
 against the oracle path on the same weights, and serves three of them
@@ -1682,7 +1683,7 @@ def phase_bo(cx):
     """BO on the card: Tuner(bo) -> KernelTuneEvaluator -> WallClockEvaluator ->
     ops -> kernel for all five kernels at full width, into a fresh TuningDB,
     every measurement recorded into a fresh transfer corpus; then one GP fit
-    + ranking timed on the CPU and on the card."""
+    + ranking timed on the CPU and on the card, and the async-loop gate."""
     import statistics
 
     import torch
@@ -1752,6 +1753,37 @@ def phase_bo(cx):
           "launches": counts, "gp_fit_and_rank_ms": gp_ms, "gp_candidates": BO_GP_CANDIDATES,
           "gp_note": "median of 5 of GaussianProcess(device).fit + acquisition_rank, host clock; "
                      "an observation, not a gate"})
+    _async_gate()
+
+
+def _async_gate():
+    """The port's own async-loop gate on this host, as a child process:
+    ``perf_iterations --async-loop --check`` (BO / GA / NMS / random,
+    completion-driven vs batch-barrier, budget 16, parallelism 4).  A
+    non-zero exit fails the phase."""
+    from repro_torch.kernels import _build
+
+    out = _build.build_dir() / "asyncbench.json"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.benchmarks.perf_iterations", "--async-loop",
+           "--check", "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=HERE,
+                          env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"bo: perf_iterations --async-loop --check exited "
+                             f"{proc.returncode}:\n" + log[-3000:])
+    rows = json.loads(out.read_text())
+    asks = {r["loop"]: r["mean_ask_seconds"] * 1e3 for r in rows
+            if r["mode"] == "bo_suggestion_overhead"}
+    total = next(r for r in rows if r["mode"] == "async_vs_batch_total")
+    emit({"phase": "bo", "part": "async_gate", "command": " ".join(["python"] + cmd[1:5]),
+          "rc": proc.returncode, "seconds": round(time.perf_counter() - t0, 1),
+          "lines": [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith(("asyncbench", "bo_suggestion", "memocache"))],
+          "bo_mean_ask_ms": asks, "batch_seconds": total["batch_seconds"],
+          "async_seconds": total["async_seconds"], "speedup": total["speedup"]})
 
 
 def make_service_objective():

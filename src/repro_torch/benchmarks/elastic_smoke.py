@@ -96,9 +96,14 @@ def spawn_worker(root: pathlib.Path, *, port=None, join=None, slots=1,
                             stderr=subprocess.DEVNULL)
 
 
-def wait_port(port: int, timeout_s: float = 20.0) -> None:
+def wait_port(port: int, timeout_s: float = 20.0, proc=None) -> None:
+    """Block until something listens on ``port``; with ``proc`` (the
+    worker's ``Popen``), fail at once if that process has exited."""
     deadline = time.time() + timeout_s
     while time.time() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"worker for port {port} exited with code "
+                               f"{proc.returncode} before it listened")
         try:
             socket.create_connection(("127.0.0.1", port), timeout=0.2).close()
             return

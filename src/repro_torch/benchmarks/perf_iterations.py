@@ -507,12 +507,12 @@ def run_remote_comparison(budget: int = 16, parallelism: int = 4,
     Returns ``(rows, ok)``.
     """
     import os
-    import socket
     import subprocess
     import sys
     import tempfile
     import threading
 
+    from repro_torch.benchmarks.elastic_smoke import free_port, wait_port
     from repro_torch.core import Tuner, TunerConfig
     from repro_torch.tuning.objective import CountingEvaluator
 
@@ -524,13 +524,6 @@ def run_remote_comparison(budget: int = 16, parallelism: int = 4,
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(src)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-
-    def free_port():
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-        s.close()
-        return port
 
     def spawn_worker(port):
         return subprocess.Popen(
@@ -546,6 +539,10 @@ def run_remote_comparison(budget: int = 16, parallelism: int = 4,
     rows = []
     point_key = ("inter_op", "intra_op", "build")
     try:
+        # a worker still importing torch on a loaded host is not listening
+        # yet, and a Tuner gives each worker only its connect timeout
+        for port, w in zip(ports, workers):
+            wait_port(port, timeout_s=120.0, proc=w)
         with tempfile.TemporaryDirectory() as d:
             memo_clean = str(pathlib.Path(d) / "memo_remote.json")
             memo_kill = str(pathlib.Path(d) / "memo_kill.json")

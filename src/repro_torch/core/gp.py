@@ -2,15 +2,19 @@
 
 ARD RBF / Matérn-5/2 kernels; hyperparameters (log-lengthscales, log
 signal variance, log noise) fit by maximising the log marginal likelihood
-with Adam on gradients from ``torch.autograd`` (the GP itself is white-box
-— the *objective* is the black box).  Cholesky-based posterior, y
-standardised internally in float64 numpy, the GP computed in float32.
+with Adam on its closed-form gradient, ½·tr((K⁻¹ − ααᵀ)·∂K/∂θ) (the GP
+itself is white-box — the *objective* is the black box).  Cholesky-based
+posterior, y standardised internally in float64 numpy, the GP computed in
+float32.
 
 This is the host-side control code of the BO engine: tens to hundreds of
-training rows, one Cholesky per Adam step.  It runs where its ``device``
-says, ``"cpu"`` by default; nothing here probes for a card.  It fits on
-the live rows only: eager PyTorch compiles nothing per shape, so there
-is no shape bucketing and no padding mask.
+training rows, one Cholesky and one inverse per Adam step.  The fit runs
+on the host in numpy whatever the ``device`` (each step is a handful of
+operations on tiny arrays, where eager tensors' per-operation cost would
+dominate); the posterior and the ranking run where ``device`` says,
+``"cpu"`` by default; nothing here probes for a card.  It fits on the
+live rows only: nothing compiles per shape, so there is no shape
+bucketing and no padding mask.
 
 Failed factorisations keep the fallback chain of the reference GP: a
 matrix that is not positive definite factors to NaN (``cholesky_ex`` with
@@ -49,6 +53,7 @@ _BOX = {"log_ls": (math.log(1e-2), math.log(1e2)),
         "log_sigma2": (math.log(1e-3), math.log(1e3)),
         "log_noise": (math.log(1e-4), math.log(1.0))}
 _SAFE_NOISE = math.log(1e-1)
+_KEYS = ("log_ls", "log_sigma2", "log_noise")
 
 
 def _sqdist(X1: torch.Tensor, X2: torch.Tensor, ls: torch.Tensor) -> torch.Tensor:
@@ -110,31 +115,81 @@ def _neg_mll(params: Dict, X, y, kind: str, noise_row=None) -> torch.Tensor:
     return -mll
 
 
+def _pack(params: Dict) -> np.ndarray:
+    """(log_ls..., log_sigma2, log_noise) as one host vector."""
+    return np.concatenate([params[k].detach().cpu().numpy().reshape(-1) for k in _KEYS])
+
+
+def _sq_diffs(X: np.ndarray) -> np.ndarray:
+    """Per-dimension squared differences (x_ik - x_jk)², as (n·n, d)."""
+    diff = X[:, None, :] - X[None, :, :]
+    return (diff * diff).reshape(-1, X.shape[1])
+
+
+def _neg_mll_grad(theta: np.ndarray, D2: np.ndarray, y: np.ndarray, kind: str,
+                  noise_row: Optional[np.ndarray] = None) -> np.ndarray:
+    """Closed-form gradient of ``_neg_mll`` with respect to ``_pack``'s vector.
+
+    ∂NLL/∂θ = ½·tr((K⁻¹ − ααᵀ)·∂K/∂θ), with r² = Σ_k (x_ik − x_jk)²/ℓ_k²,
+    ∂K/∂log ℓ_k = ∂K/∂r² · (−2 (x_ik − x_jk)²/ℓ_k²), ∂K/∂log σ² = K
+    without the noise, and ∂K/∂log noise = diag(exp(log_noise) · noise_row).
+    A factorisation that fails gives NaN, as ``_cholesky`` does."""
+    n, d = y.shape[0], D2.shape[1]
+    ils2 = np.exp(-2.0 * theta[:d])
+    r2 = (D2 @ ils2).reshape(n, n)
+    sigma2, noise0 = np.exp(theta[d]), np.exp(theta[d + 1])
+    if kind == "rbf":
+        K0 = sigma2 * np.exp(-0.5 * r2)
+        dK_dr2 = -0.5 * K0
+    elif kind == "matern52":
+        s = math.sqrt(5.0) * np.sqrt(r2 + 1e-12)
+        e = np.exp(-s)
+        K0 = sigma2 * (1.0 + s + s * s / 3.0) * e
+        dK_dr2 = (-5.0 / 6.0) * sigma2 * (1.0 + s) * e
+    else:
+        raise ValueError(kind)
+    scale = 1.0 if noise_row is None else noise_row
+    K = K0.copy()
+    K.flat[::n + 1] += (noise0 + _JITTER) * scale
+    L, info = torch.linalg.cholesky_ex(torch.from_numpy(K))
+    if info:
+        return np.full_like(theta, math.nan)
+    Kinv = torch.cholesky_inverse(L).numpy()
+    alpha = Kinv @ y
+    A = Kinv - np.outer(alpha, alpha)
+    g_ls = -((A * dK_dr2).reshape(-1) @ D2) * ils2
+    g_noise = 0.5 * noise0 * np.sum(np.diagonal(A) * scale)
+    return np.concatenate([g_ls, [0.5 * np.vdot(A, K0), g_noise]]).astype(theta.dtype)
+
+
 def _fit(params0: Dict, X, y, kind: str, steps: int, lr: float,
          noise_row=None) -> Dict:
     """Adam on the negative MLL, written out: β = (0.9, 0.999), bias
     correction by the step count, ε outside the square root, the
-    hyperparameters clipped into their box after every step."""
-    params = {k: v.detach().clone() for k, v in params0.items()}
-    m = {k: torch.zeros_like(v) for k, v in params.items()}
-    v = {k: torch.zeros_like(p) for k, p in params.items()}
-    names = list(params)
-    b1 = torch.tensor(0.9, dtype=X.dtype, device=X.device)
-    b2 = torch.tensor(0.999, dtype=X.dtype, device=X.device)
+    hyperparameters clipped into their box after every step.
+
+    Runs on the host in numpy, in the dtype of ``X``, on the gradient of
+    ``_neg_mll_grad`` (its factor and inverse by torch on CPU tensors that
+    share the arrays' memory): tens of rows make every step a handful of
+    tiny array operations, where the per-operation cost of eager tensors
+    would dominate.  Returns tensors on ``X``'s device."""
+    Xn, yn = X.detach().cpu().numpy(), y.detach().cpu().numpy()
+    row = None if noise_row is None else noise_row.detach().cpu().numpy()
+    D2 = _sq_diffs(Xn)
+    theta = _pack(params0).astype(Xn.dtype)
+    d = theta.shape[0] - 2
+    lo, hi = np.array([_BOX[k] for k in ("log_ls",) * d + _KEYS[1:]], Xn.dtype).T
+    m, v = np.zeros_like(theta), np.zeros_like(theta)
+    b1, b2 = Xn.dtype.type(0.9), Xn.dtype.type(0.999)
     for t in range(1, steps + 1):
-        leaves = [params[k].requires_grad_(True) for k in names]
-        loss = _neg_mll(params, X, y, kind, noise_row)
-        grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
-            c1 = 1 - b1 ** t
-            c2 = 1 - b2 ** t
-            for k, g in zip(names, grads):
-                m[k] = 0.9 * m[k] + 0.1 * g
-                v[k] = 0.999 * v[k] + 0.001 * g * g
-                step = params[k].detach() - lr * (m[k] / c1) / (torch.sqrt(v[k] / c2) + _ADAM_EPS)
-                lo, hi = _BOX[k]
-                params[k] = step.clamp(lo, hi)
-    return params
+        g = _neg_mll_grad(theta, D2, yn, kind, row)
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        step = theta - lr * (m / (1 - b1 ** t)) / (np.sqrt(v / (1 - b2 ** t)) + _ADAM_EPS)
+        theta = np.clip(step, lo, hi)
+    as_tensor = lambda a: torch.tensor(a, dtype=X.dtype, device=X.device)
+    return {"log_ls": as_tensor(theta[:d]), "log_sigma2": as_tensor(theta[d]),
+            "log_noise": as_tensor(theta[d + 1])}
 
 
 def _posterior_core(params: Dict, X, y, Xs, kind: str, noise_row=None):

@@ -54,15 +54,24 @@ DOT_BAND = (0.95, 1.05)
 #: (the embedding lookup, the cache's update slice), which DTensor does as
 #: a masked partial sum, reduced by an all-reduce
 DTENSOR_FORM = {"all-to-all": "all-gather", "collective-permute": "all-reduce"}
+#: the cells the reference compiles: every (arch, kind) under the baseline's
+#: GSPMD MoE, and qwen3-moe's train step again under shard_map expert
+#: parallelism (``ep_local``), whose collective cut both packages must show
+CELLS = [(a, k, "gspmd") for a in ARCHS for k in KINDS] + [("qwen3-moe-30b-a3b", "train",
+                                                           "ep_local")]
+#: how far below the reference's ep_local / gspmd ratio of weighted collective
+#: bytes the port's may fall: the two express collectives in different kinds
+#: (``DTENSOR_FORM``), so the bytes agree only in order of magnitude
+EP_RATIO_FACTOR = 2.0
 
 
 def _shape(kind):
     return ShapeConfig("t", 64, 4, kind)
 
 
-def _bc(kind):
+def _bc(kind, moe_impl="gspmd"):
     return BASELINE.replace(unroll_layers=True, block_q=32,
-                            microbatches=2 if kind == "train" else 1)
+                            microbatches=2 if kind == "train" else 1, moe_impl=moe_impl)
 
 
 # -- a toy ------------------------------------------------------------------------------
@@ -97,6 +106,7 @@ import jax, numpy as np
 from repro.configs import get_config
 from repro.configs.base import ShapeConfig
 from repro.launch.dryrun import lower_cell
+from repro.tuning.cost_model import weighted_collective_bytes
 from repro.tuning.hlo_analysis import collect_collective_stats, cost_with_scan_correction
 from repro.tuning.parameters import BASELINE
 
@@ -121,22 +131,22 @@ def dot_flops(hlo):
 # jax made explicit axes its default)
 mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
 out = {}
-for arch in ARCHS:
-    cfg = get_config(arch).reduced()
-    for kind in KINDS:
-        bc = BASELINE.replace(unroll_layers=True, block_q=32,
-                              microbatches=2 if kind == "train" else 1)
-        compiled = lower_cell(cfg, ShapeConfig("t", 64, 4, kind), mesh, bc).compile()
-        mem, hlo = compiled.memory_analysis(), compiled.as_text()
-        coll = collect_collective_stats(hlo)
-        out[arch + "/" + kind] = {
-            "argument_B": mem.argument_size_in_bytes,
-            "flops": cost_with_scan_correction(compiled)["flops"],
-            "dot_flops": dot_flops(hlo),
-            "bytes_by_kind": dict(coll.bytes_by_kind),
-            "count_by_kind": dict(coll.count_by_kind)}
+for arch, kind, moe_impl in CELLS:
+    bc = BASELINE.replace(unroll_layers=True, block_q=32,
+                          microbatches=2 if kind == "train" else 1, moe_impl=moe_impl)
+    compiled = lower_cell(get_config(arch).reduced(), ShapeConfig("t", 64, 4, kind), mesh,
+                          bc).compile()
+    mem, hlo = compiled.memory_analysis(), compiled.as_text()
+    coll = collect_collective_stats(hlo)
+    out["/".join([arch, kind] + ([] if moe_impl == "gspmd" else [moe_impl]))] = {
+        "argument_B": mem.argument_size_in_bytes,
+        "flops": cost_with_scan_correction(compiled)["flops"],
+        "dot_flops": dot_flops(hlo),
+        "bytes_by_kind": dict(coll.bytes_by_kind),
+        "count_by_kind": dict(coll.count_by_kind),
+        "weighted_bytes": weighted_collective_bytes(coll.bytes_by_kind)}
 print(json.dumps(out))
-""".replace("ARCHS:", repr(ARCHS) + ":").replace("KINDS:", repr(KINDS) + ":")
+""".replace("CELLS:", repr(CELLS) + ":")
 
 
 @pytest.fixture(scope="module")
@@ -152,10 +162,11 @@ def reference():
 _PORT = {}
 
 
-def _port(arch, kind):
-    key = f"{arch}/{kind}"
+def _port(arch, kind, moe_impl="gspmd"):
+    key = (arch, kind, moe_impl)
     if key not in _PORT:
-        _PORT[key] = dryrun.analyze(get_config(arch).reduced(), _shape(kind), _bc(kind), MESH)
+        _PORT[key] = dryrun.analyze(get_config(arch).reduced(), _shape(kind),
+                                    _bc(kind, moe_impl), MESH)
     return _PORT[key]
 
 
@@ -193,6 +204,21 @@ def test_collective_kinds_of_the_reference_show_in_the_port(arch, kind, referenc
     for k in ref["bytes_by_kind"]:
         assert ours["bytes_by_kind"].get(DTENSOR_FORM.get(k, k), 0) > 0, k
     assert _port(arch, kind)["roofline"]["collective_s"] > 0
+
+
+def test_ep_local_cuts_collective_bytes_in_the_port_as_in_the_reference(reference):
+    """qwen3-moe's reduced train step: the ratio gspmd / ep_local of weighted
+    collective bytes a device, in each package (printed with ``-s``).  Both
+    cut, and the port's cut is within ``EP_RATIO_FACTOR`` of the reference's."""
+    arch = "qwen3-moe-30b-a3b"
+    ref = reference[f"{arch}/train"]["weighted_bytes"] / \
+        reference[f"{arch}/train/ep_local"]["weighted_bytes"]
+    port = _port(arch, "train")["collectives"]["weighted_bytes"] / \
+        _port(arch, "train", "ep_local")["collectives"]["weighted_bytes"]
+    print(f"\n{arch}/train gspmd / ep_local weighted collective bytes: "
+          f"reference {ref:.4f}, port {port:.4f} (reference / port {ref / port:.4f})")
+    assert ref > 1 and port > 1
+    assert port * EP_RATIO_FACTOR >= ref
 
 
 # -- the trace's shortcuts on a mesh -------------------------------------------------------
