@@ -9,12 +9,20 @@
     python3 chip_smoke.py --phases env,build,roofline
     python3 chip_smoke.py --phases env,build,multichip
     python3 chip_smoke.py --phases env,build,train_families
+    python3 chip_smoke.py --phases env,build,serve,graphs
 
 Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
 ``qwen2-0.5b`` at its published width through the port's normal entry point
-(``repro_torch.launch.serve``) and checks, by the kernels' launch counts,
-that the served path really went through them.  The ``sweep`` phase closes
+(``repro_torch.launch.serve``, whose decode step is one CUDA graph
+replayed a token) and checks, by the kernels' launch counts, that the
+served path really went through them.  The ``graphs`` phase decodes
+qwen2-0.5b at its published width (and rwkv6-3b, minicpm3-4b and
+whisper-base at the ``families`` phase's sizes) from one prefill through
+the eager and the compiled decode step
+(``repro_torch.launch.serve_profile.decode_paths``): tokens and every
+step's logits must be equal bit for bit; it reports both paths' step
+seconds, tokens/s, idle share, launches and peak bytes.  The ``sweep`` phase closes
 the tuning loop: it tunes all five kernels at full-width shapes
 (``repro_torch.benchmarks.kernel_sweep``), persists the answers in a
 ``TuningDB``, re-runs warm (nothing is measured again) and serves the model
@@ -1069,9 +1077,100 @@ def phase_serve(cx):
                          launches=counts, ran=ran))
     cx.launches = runs[0]["launches"]
     emit({"phase": "serve", "gpu": cx.smi, "args": SERVE_ARGS, "expected_launches": expected,
+          "decode": "make_graphed_decode_step (one CUDA graph, replayed a token)",
           "runs": runs, "note": "the first run includes one-time costs (Triton compilation, "
                                 "first launches); both runs include their own weight initialisation "
-                                "outside the timed region"})
+                                "outside the timed region, and each its graph's capture"})
+
+
+GRAPHS_QWEN = {"B": 8, "prompt": 512, "steps": 63}  # launch/serve.py's served wave
+GRAPHS_PROFILE_STEPS = {"qwen2-0.5b": 16, "families": 4}
+
+
+def _graphed_equal(what, eager_logits, eager_toks, graphed_logits, graphed_toks):
+    """The compiled decode step against the eager one from the same
+    prefill: every step's tokens and logits equal bit for bit."""
+    import torch
+
+    if len(eager_logits) != len(graphed_logits) or len(eager_toks) != len(graphed_toks):
+        raise AssertionError(f"graphs {what}: the paths ran different numbers of steps")
+    for t, (a, b) in enumerate(zip(eager_toks, graphed_toks)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"graphs {what}: greedy tokens differ at step {t}")
+    for t, (a, b) in enumerate(zip(eager_logits, graphed_logits)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"graphs {what}: logits differ at step {t} by up to "
+                                 f"{max_err(a, b):.3e}; the compiled step must equal the "
+                                 "eager one bit for bit")
+
+
+def _graphs_case(what, model, params, batch, steps, profile_steps):
+    """``decode_paths`` (eager, then compiled, from one prefill) on the
+    kernel runtime in bf16; fails unless the two agree bit for bit and
+    launch the same kernels a step."""
+    from repro_torch.launch.serve import runtime
+    from repro_torch.launch.serve_profile import decode_paths
+
+    report, kept = decode_paths(model, params, runtime(True, "bf16"), batch, steps,
+                                profile_steps=profile_steps, top=8)
+    (le, te), (lg, tg) = kept["eager"], kept["graphed"]
+    _graphed_equal(what, le, te, lg, tg)
+    eager, graphed = report["paths"]["eager"], report["paths"]["graphed"]
+    if eager["kernel_launches_per_decode_step"] != graphed["kernel_launches_per_decode_step"]:
+        raise AssertionError(f"graphs {what}: kernel launches a step differ: eager "
+                             f"{eager['kernel_launches_per_decode_step']}, compiled "
+                             f"{graphed['kernel_launches_per_decode_step']}")
+    return report
+
+
+def phase_graphs(cx):
+    """The compiled decode step against the eager one, at the served sizes:
+    qwen2-0.5b at its published width, bf16, batch 8, prompt 512, 63 decode
+    steps (``launch/serve.py``'s wave), then rwkv6-3b, minicpm3-4b and
+    whisper-base at the sizes the ``families`` phase serves them
+    (``FAMILY_SERVE``).  Each from one prefill, through
+    ``serve_profile.decode_paths``: equal tokens and ``torch.equal`` logits
+    at every step, equal kernel launches a step, and both paths' step
+    seconds, tokens/s, device busy time, idle share, launches and peak
+    bytes.  (The Jamba period's compiled decode is held to its eager one in
+    the ``families`` phase, through ``_family_serve_steps``.)"""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import frontend_inputs
+
+    t_phase = time.perf_counter()
+    mods = _kernel_wrappers()
+    _zero_counts(mods)  # just before the path ...
+    _full_model(cx)
+    B, S, steps = GRAPHS_QWEN["B"], GRAPHS_QWEN["prompt"], GRAPHS_QWEN["steps"]
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cx.cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    t0 = time.perf_counter()
+    report = _graphs_case("qwen2-0.5b", cx.model, cx.params, {"tokens": tokens}, steps,
+                          GRAPHS_PROFILE_STEPS["qwen2-0.5b"])
+    emit({"phase": "graphs", "gpu": cx.smi, "model": "qwen2-0.5b", "dtype": "bf16",
+          "equal_bit_for_bit": True, "seconds": time.perf_counter() - t0, **report})
+    cx.model = cx.params = None
+    torch.cuda.empty_cache()
+    for arch, args in FAMILY_SERVE.items():
+        t0 = time.perf_counter()
+        B = int(args[args.index("--batch") + 1])
+        S = int(args[args.index("--prompt-len") + 1])
+        steps = int(args[args.index("--gen-len") + 1]) - 1
+        cfg = get_config(arch)
+        model, params = _family_init(cfg, torch.bfloat16)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+        batch = {"tokens": tokens, **frontend_inputs(cfg, B, tokens.device)}
+        report = _graphs_case(arch, model, params, batch, steps, GRAPHS_PROFILE_STEPS["families"])
+        emit({"phase": "graphs", "gpu": cx.smi, "model": arch, "dtype": "bf16",
+              "equal_bit_for_bit": True, "seconds": time.perf_counter() - t0, **report})
+        del model, params, batch
+        torch.cuda.empty_cache()
+    cx.graphs_launches = _counts(mods)  # ... and read just after
+    emit({"phase": "graphs", "launches": cx.graphs_launches,
+          "seconds": time.perf_counter() - t_phase})
 
 
 def _train_run(args, mods):
@@ -1645,15 +1744,9 @@ def phase_sweep(cx):
 
 
 def _kernel_wrappers():
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fla
-    from repro_torch.kernels import gla_scan as gla
-    from repro_torch.kernels import rmsnorm as rms
-    from repro_torch.kernels import ssm_scan as ssm
+    from repro_torch.serve.serve_step import kernel_counters
 
-    return {"rmsnorm": rms.rmsnorm, "flash_attention": fla.flash_attention,
-            "decode_attention": dec.decode_attention, "ssm_scan": ssm.ssm_scan,
-            "gla_scan": gla.gla_scan}
+    return {fn.__name__: fn for fn in kernel_counters()}
 
 
 def _gp_ask_ms(device, rows, reps=5):
@@ -1985,6 +2078,8 @@ class _KernelClock:
             def timed(*a, **kw):
                 import torch
 
+                if torch.cuda.is_current_stream_capturing():
+                    return fn(*a, **kw)  # a capture launches nothing: nothing to time
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -2075,27 +2170,28 @@ def _family_forward(model, params, batch, rt, mods, clock):
                  "peak_memory_bytes": int(torch.cuda.max_memory_allocated())}
 
 
-def _family_serve_steps(model, params, batch, rt, mods, steps, forced=None):
+def _family_serve_steps(model, params, batch, rt, mods, steps, forced=None, graphed=False):
     """Prefill + ``steps`` decode steps through ``serve/serve_step.py``:
     the logits of every step (f32), the greedy tokens, and the launches.
     ``forced`` feeds these tokens instead of the greedy ones (so two paths
-    see the same inputs)."""
+    see the same inputs); ``graphed`` decodes through the compiled step."""
     import torch
 
     from repro_torch.models.params import split_params
-    from repro_torch.serve.serve_step import greedy_sample, make_decode_step, make_prefill_step
+    from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
+                                              make_graphed_decode_step, make_prefill_step)
 
     B, S = batch["tokens"].shape
     cache, _ = split_params(model.init_cache(B, S + steps + 1, device=batch["tokens"].device))
     _zero_counts(mods)
     logits, cache = make_prefill_step(model, rt)(params, batch, cache)
     prefill_counts = _counts(mods)
-    decode = make_decode_step(model, rt)
+    decode = (make_graphed_decode_step if graphed else make_decode_step)(model, rt)
     outs, toks = [logits.float()], [greedy_sample(logits)]
     _zero_counts(mods)
     for t in range(steps):
         logits, cache = decode(params, toks[-1] if forced is None else forced[t], cache)
-        outs.append(logits.float())
+        outs.append((logits.clone() if graphed else logits).float())  # a replay overwrites it
         toks.append(greedy_sample(logits))
     torch.cuda.synchronize()
     return torch.cat(outs, dim=1), toks, {"prefill": prefill_counts, "decode": _counts(mods)}
@@ -2290,6 +2386,15 @@ def phase_families(cx):
         _family_expect("jamba decode", ck["decode"], dict(
             zero, rmsnorm=(2 * cfg.num_layers + 1) * FAMILY_DECODE,
             decode_attention=n_attn * FAMILY_DECODE))
+        # the same decode through the compiled step: equal bit for bit
+        lg, tg, cg = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE,
+                                         forced=tk, graphed=True)
+        _graphed_equal("jamba", [lk[:, i] for i in range(lk.shape[1])], tk,
+                       [lg[:, i] for i in range(lg.shape[1])], tg)
+        _family_expect("jamba graphed prefill+decode", cg, ck)
+        _add_counts(total, cg["prefill"])
+        _add_counts(total, cg["decode"])
+        del lg
         k32 = _family_serve_f32("jamba", model, p16, sb, rt_k["f32"], mods, tk, ck, total)
         lo, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
         l32, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
@@ -2304,7 +2409,7 @@ def phase_families(cx):
                     cfg.moe.capacity_factor * FAMILY_S * cfg.moe.top_k / cfg.moe.num_experts)},
             "flash_kernel": flash_kernel, "forward": infos, "compare": cmp,
             "serve_steps": {"prompt": 512, "decode_steps": FAMILY_DECODE, "launches": ck,
-                            "compare": cmp_serve},
+                            "compare": cmp_serve, "graphed_equal_bit_for_bit": True},
             "seconds": time.perf_counter() - t0}
         emit({"phase": "families", "model": "jamba-v0.1-52b", **report["jamba-v0.1-52b"]})
         _family_route("jamba", flash_kernel, "wgmma")
@@ -2604,7 +2709,8 @@ def kernels_line(cx):
     ``paper`` phase, summed over its five workloads; ``roofline_launches``
     in the ``roofline`` phase's three steps on the kernel path;
     ``multichip_launches`` in the ``multichip`` phase's expert-parallel
-    forward."""
+    forward; ``graphs_launches`` in the ``graphs`` phase's eager and
+    compiled decode steps."""
     meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
@@ -2642,6 +2748,7 @@ def kernels_line(cx):
                     "roofline_launches": cx.roofline_launches[name],
                     "multichip_launches": cx.multichip_launches[name],
                     "train_families_launches": cx.train_family_launches[name],
+                    "graphs_launches": cx.graphs_launches[name],
                     "shape": row["shape"], "dtype": dtype})
     emit({"kernels": out})
 
@@ -3440,7 +3547,8 @@ def phase_train_families(cx):
 
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-          "parity": phase_parity, "serve": phase_serve, "train": phase_train,
+          "parity": phase_parity, "serve": phase_serve, "graphs": phase_graphs,
+          "train": phase_train,
           "tuning_db": phase_tuning_db,
           "sweep": phase_sweep, "bo": phase_bo, "service": phase_service,
           "families": phase_families, "paper": phase_paper, "host_knobs": phase_host_knobs,

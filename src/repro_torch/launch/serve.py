@@ -10,7 +10,14 @@ request has ``gen_len`` tokens, wave after wave.
 
 Runs on the card (``--device cuda``, the default) through the hand-written
 kernels (``runtime``: attention, RMSNorm and the scans), and raises when
-there is no card.  ``--device cpu`` is for tests: it takes the oracles.
+there is no card.  On the card every family decodes through the compiled
+step (``make_graphed_decode_step``: one CUDA graph a ``(batch,
+cache_len)``, captured at the second token and replayed at every later
+one, as the reference decodes through ``jax.jit``); a capture that fails
+raises.  ``--device cpu`` is for tests: it takes the oracles and decodes
+eagerly.  The cache is allocated once and zeroed in place at the start of
+every wave, so each wave starts from a fresh cache's state at the
+addresses the graph holds.
 An encoder-decoder model (whisper) gets zero ``encoder_embeds`` of
 ``encoder_seq_len`` frames, a VLM zero ``image_embeds``, as in the
 reference.
@@ -28,7 +35,8 @@ from repro_torch.models.model import build_model
 from repro_torch.models.params import split_params
 from repro_torch.models.runtime import Runtime
 from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
-                                          make_prefill_step)
+                                          make_graphed_decode_step, make_prefill_step,
+                                          reset_cache)
 
 
 def runtime(on_card: bool, dtype: str) -> Runtime:
@@ -102,8 +110,10 @@ def main(argv=None):
     ]
 
     prefill = make_prefill_step(model, rt, tuning_db=tuning_db)
-    decode = make_decode_step(model, rt, tuning_db=tuning_db)
+    decode = (make_graphed_decode_step if on_card else make_decode_step)(
+        model, rt, tuning_db=tuning_db)
     cache_len = args.prompt_len + args.gen_len
+    cache, _ = split_params(model.init_cache(args.batch, cache_len, device=device))
 
     def sync():
         if on_card:
@@ -121,7 +131,7 @@ def main(argv=None):
             toks[i, args.prompt_len - len(p):] = p
         batch = {"tokens": torch.from_numpy(toks).to(device),
                  **frontend_inputs(cfg, B, device)}
-        cache, _ = split_params(model.init_cache(B, cache_len, device=device))
+        cache = reset_cache(cache)
         logits, cache = prefill(params, batch, cache)
         tok = greedy_sample(logits)
         outs = [tok]

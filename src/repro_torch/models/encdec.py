@@ -10,7 +10,7 @@ the decoder's self-attention is causal with a KV cache, and its
 cross-attention reads the encoder's K/V (``ops.attention`` over all
 ``T_enc`` keys in the parallel modes, ``ops.decode_attention`` with
 ``lengths = T_enc`` in decode).  The caches are updated in place and
-``pos`` is a host integer, as in ``models/lm.py``.
+``pos`` is a host integer or a 0-d device tensor, as in ``models/lm.py``.
 """
 from __future__ import annotations
 
@@ -188,11 +188,15 @@ def forward(
 def decode_step(params, tokens: torch.Tensor, cache: dict, *, cfg: ModelConfig,
                 rt: Runtime) -> Tuple[torch.Tensor, dict]:
     """One decode token for the whole batch; the cache is updated in place
-    and handed back with ``pos`` advanced."""
-    pos = int(cache["pos"])
+    and handed back with ``pos`` advanced (a host integer, or a new 0-d
+    tensor where a tensor came in)."""
+    pos = L.device_position(cache["pos"])
+    on_device = isinstance(pos, L.DevicePosition)
     B = tokens.shape[0]
     x = F.embedding(tokens, params["embed"]).to(rt.dtype())
-    x = x + _pos_enc(torch.full((B, 1), pos, device=tokens.device), cfg.d_model).to(x.dtype)
+    positions = (pos.t.expand(B, 1) if on_device else
+                 torch.full((B, 1), pos, device=tokens.device))
+    x = x + _pos_enc(positions, cfg.d_model).to(x.dtype)
     for blk, c in zip(_layers(params["dec_blocks"]), _layers(cache["layers"])):
         h, _ = L.attention_apply(
             blk["self_attn"], L.layernorm(blk["norm1"], x, cfg.norm_eps),
@@ -207,7 +211,13 @@ def decode_step(params, tokens: torch.Tensor, cache: dict, *, cfg: ModelConfig,
                             cfg=cfg, rt=rt)
     x = L.layernorm(params["final_norm"], x, cfg.norm_eps)
     logits = x.to(rt.dtype()) @ params["embed"].T.to(rt.dtype())
-    return logits, {"pos": pos + 1, "layers": cache["layers"]}
+    return logits, {"pos": pos.t + 1 if on_device else pos + 1, "layers": cache["layers"]}
+
+
+def decode_limit(cfg: ModelConfig, cache: dict) -> Optional[int]:
+    """The first position ``decode_step`` may not write: the slots of the
+    self-attention cache (None for a ring)."""
+    return None if cfg.sliding_window else cache["layers"]["self"]["k"].shape[2]
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None) -> dict:

@@ -19,8 +19,12 @@ Two things differ from the reference package on purpose:
   **in place** and handed back (the reference's arrays are immutable; its
   decode step donates the cache to the same effect).  The returned cache
   holds what the reference's holds.
-* ``pos`` is a host integer, so the ring-buffer slot and the valid length
-  cost no device round trip.
+* a decode ``pos`` is either a host integer (the eager step: the
+  ring-buffer slot and the valid length cost no device round trip) or a
+  0-d integer tensor on the cache's device (the compiled step of
+  ``serve/serve_step.py``, as the reference's ``cache["pos"]``): then the
+  slot, the cache write, the lengths and the RoPE tables are computed on
+  the device (``DevicePosition``) and nothing is read back to the host.
 """
 from __future__ import annotations
 
@@ -122,6 +126,55 @@ def _rope_tables_uncached(first, count, batch, dh, theta, device):
 _rope_tables_cached = functools.lru_cache(maxsize=8)(_rope_tables_uncached)
 
 
+class DevicePosition:
+    """A decode position held on the device (a 0-d integer tensor) and the
+    values every layer of one step derives from it, each made once a step
+    and only on the device: no ``int()``, ``.item()`` or ``.cpu()``.
+
+    The memo lives only as long as the step that made it.  Values made
+    while a CUDA graph captures come from the graph's private pool, which
+    every replay overwrites, so they must not outlive the capture; the
+    host-keyed ``_rope_tables_cached`` never sees a tensor position."""
+
+    def __init__(self, pos: torch.Tensor):
+        if pos.dim() != 0 or pos.dtype.is_floating_point or pos.dtype == torch.bool:
+            raise TypeError(f"a device position is a 0-d integer tensor, got "
+                            f"{pos.dtype} of shape {tuple(pos.shape)}")
+        self.t = pos
+        self._memo = {}
+
+    def _made(self, key, make):
+        if key not in self._memo:
+            self._memo[key] = make()
+        return self._memo[key]
+
+    def rope_tables(self, batch: int, dh: int, theta: float):
+        """``_rope_tables_at(pos, 1, batch, ...)``'s tables, from the device."""
+        return self._made(("rope", batch, dh, theta),
+                          lambda: rope_tables(self.t.expand(batch, 1), dh, theta))
+
+    def slot(self, length: int, ring: bool) -> torch.Tensor:
+        """The cache slot as a (1,) int64 index: ``pos % length`` for a ring."""
+        return self._made(("slot", length, ring), lambda: (
+            torch.remainder(self.t, length) if ring else self.t).reshape(1).long())
+
+    def lengths(self, batch: int, length: int) -> torch.Tensor:
+        """``min(pos + 1, length)`` for every sequence, (batch,) int32."""
+        return self._made(("lengths", batch, length), lambda: torch.clamp(
+            self.t + 1, max=length).to(torch.int32).expand(batch).contiguous())
+
+
+def device_position(pos):
+    """``pos`` as a decode branch takes it: a host integer as ``int``; a 0-d
+    tensor, or a ``DevicePosition`` already made for this step, as a
+    ``DevicePosition``."""
+    if isinstance(pos, DevicePosition):
+        return pos
+    if isinstance(pos, torch.Tensor):
+        return DevicePosition(pos)
+    return int(pos)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                tables=None) -> torch.Tensor:
     """x (B, S, H, dh) rotate-half RoPE; positions (S,) or (B, S), or
@@ -208,7 +261,7 @@ def attention_apply(
     rt: Runtime,
     mode: str,
     cache: Optional[dict] = None,
-    pos: Optional[int] = None,  # decode position (host integer)
+    pos=None,  # decode position: host integer, 0-d tensor or DevicePosition
     use_rope: bool = True,
     causal: bool = True,
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attn
@@ -245,19 +298,25 @@ def attention_apply(
             new_cache = _fill_kv_cache(cfg, cache, k, v)
     else:  # decode: S == 1
         assert cache is not None and pos is not None
-        pos = int(pos)
-        if use_rope:
-            tables = _rope_tables_at(pos, 1, B, q.shape[-1], cfg.rope_theta, x.device)
-            q = apply_rope(q, None, cfg.rope_theta, tables)
-            k = apply_rope(k, None, cfg.rope_theta, tables)
+        pos = device_position(pos)
         ck, cv = cache["k"], cache["v"]
         L = ck.shape[1]
-        slot = pos % L if cfg.sliding_window else pos
-        if not 0 <= slot < L:
-            raise IndexError(f"decode position {pos} is outside the cache of {L} slots")
+        on_device = isinstance(pos, DevicePosition)
+        if use_rope:
+            tables = (pos.rope_tables(B, q.shape[-1], cfg.rope_theta) if on_device else
+                      _rope_tables_at(pos, 1, B, q.shape[-1], cfg.rope_theta, x.device))
+            q = apply_rope(q, None, cfg.rope_theta, tables)
+            k = apply_rope(k, None, cfg.rope_theta, tables)
+        if on_device:  # the bound is the caller's (the compiled step checks it on the host)
+            slot = pos.slot(L, bool(cfg.sliding_window))
+        else:
+            slot = pos % L if cfg.sliding_window else pos
+            if not 0 <= slot < L:
+                raise IndexError(f"decode position {pos} is outside the cache of {L} slots")
         _write_seq(ck, slot, k[:, :1])
         _write_seq(cv, slot, v[:, :1])
-        lengths = torch.full((B,), min(pos + 1, L), dtype=torch.int32, device=x.device)
+        lengths = (pos.lengths(B, L) if on_device else
+                   torch.full((B,), min(pos + 1, L), dtype=torch.int32, device=x.device))
         # the cache is read in the type it is stored in: widening bf16 to
         # the compute dtype is exact and is left to the callee
         out = _decode_attention(
@@ -340,13 +399,21 @@ def _decode_attention(q, k, v, lengths, **kw):
     return ops.decode_attention(q, k, v, lengths, **kw)
 
 
-def _write_seq(buf, start: int, value) -> None:
+def _write_seq(buf, start, value) -> None:
     """``buf[:, start:start + n] = value`` in place, ``n = value.shape[1]``
-    (a cache write along its sequence dim).  A ``buf`` placed on a mesh
-    (a DTensor whose sequence dim may be sharded) is written shard by
-    shard: ``value`` is laid out as ``buf`` is but whole along the sequence,
-    and each device copies the part of the range that its shard holds."""
+    (a cache write along its sequence dim).  ``start`` may be a (1,) int64
+    index on ``buf``'s device (``DevicePosition.slot``, ``n == 1``): the
+    write is then an ``index_copy_`` and the host reads nothing.  A
+    ``buf`` placed on a mesh (a DTensor whose sequence dim may be sharded)
+    is written shard by shard: ``value`` is laid out as ``buf`` is but
+    whole along the sequence, and each device copies the part of the range
+    that its shard holds."""
     n = value.shape[1]
+    if isinstance(start, torch.Tensor):
+        if isinstance(buf, DTensor):
+            raise NotImplementedError("a device-held decode position on a mesh-placed cache")
+        buf.index_copy_(1, start, value.to(buf.dtype))
+        return
     if not isinstance(buf, DTensor):
         buf[:, start:start + n] = value.to(buf.dtype)
         return
@@ -413,7 +480,7 @@ def _head_project(x, w, rt: Runtime):
 
 def mla_apply(
     p, x, *, cfg: ModelConfig, rt: Runtime, mode: str,
-    cache: Optional[dict] = None, pos: Optional[int] = None,
+    cache: Optional[dict] = None, pos=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Expanded attention over the heads in ``full`` / ``prefill`` (through
     ``ops.attention``, head dims ``dn + dr`` for Q/K and ``dv`` for V);
@@ -454,16 +521,22 @@ def mla_apply(
             _write_seq(cache["krope"], 0, k_rope_r[:, :, 0])
             new_cache = {"ckv": cache["ckv"], "krope": cache["krope"]}
     else:  # decode — absorbed latent-space attention (the point of MLA)
-        pos = int(pos)
+        pos = device_position(pos)
         ck, kr = cache["ckv"], cache["krope"]
-        if not 0 <= pos < ck.shape[1]:
-            raise IndexError(f"decode position {pos} is outside the cache of "
-                             f"{ck.shape[1]} slots")
-        tables = _rope_tables_at(pos, 1, B, dr, cfg.rope_theta, x.device)
+        on_device = isinstance(pos, DevicePosition)
+        if on_device:  # the bound is the caller's (the compiled step checks it on the host)
+            tables = pos.rope_tables(B, dr, cfg.rope_theta)
+            slot = pos.slot(ck.shape[1], False)
+        else:
+            if not 0 <= pos < ck.shape[1]:
+                raise IndexError(f"decode position {pos} is outside the cache of "
+                                 f"{ck.shape[1]} slots")
+            tables = _rope_tables_at(pos, 1, B, dr, cfg.rope_theta, x.device)
+            slot = pos
         q_rope = apply_rope(q_rope, None, cfg.rope_theta, tables)
         k_rope_r = apply_rope(k_rope[:, :, None, :], None, cfg.rope_theta, tables)[:, :, 0]
-        _write_seq(ck, pos, ckv[:, :1])
-        _write_seq(kr, pos, k_rope_r[:, :1])
+        _write_seq(ck, slot, ckv[:, :1])
+        _write_seq(kr, slot, k_rope_r[:, :1])
         new_cache = {"ckv": ck, "krope": kr}
         wkv_b = _dt(p["wkv_b"], rt)
         w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]
@@ -472,7 +545,9 @@ def mla_apply(
             [torch.einsum("bhk,rhk->bhr", q_nope[:, 0], w_k), q_rope[:, 0]], dim=-1)
         keys = torch.cat([_dt(ck, rt), _dt(kr, rt)], dim=-1)[:, :, None, :]
         vals = _dt(ck, rt)[:, :, None, :]
-        lengths = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+        # in range, min(pos + 1, slots) is pos + 1
+        lengths = (pos.lengths(B, ck.shape[1]) if on_device else
+                   torch.full((B,), pos + 1, dtype=torch.int32, device=x.device))
         o_lat = ops.decode_attention(q_eff, keys, vals, lengths, scale=scale,
                                      impl="ref")  # latent kv: the oracle
         out = torch.einsum("bhr,rhv->bhv", o_lat, w_v)[:, None]
@@ -750,7 +825,7 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 def mamba_apply(
     p, x, *, cfg: ModelConfig, rt: Runtime, mode: str,
-    cache: Optional[dict] = None, pos: Optional[int] = None,
+    cache: Optional[dict] = None, pos=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``full`` runs the selective scan through ``ops.ssm_scan`` (the K4
     kernel under ``scan_impl="cuda"``); ``prefill`` takes the chunked

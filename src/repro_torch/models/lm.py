@@ -18,7 +18,9 @@ and so run again in its recompute.
 
 Three entry points: ``forward`` (full / prefill), ``decode_step`` and
 ``init_cache``.  The cache is updated in place and handed back;
-``cache["pos"]`` is a host integer.
+``cache["pos"]`` is a host integer after a prefill, and ``decode_step``
+also takes it as a 0-d integer tensor on the cache's device (the compiled
+step of ``serve/serve_step.py``; see ``layers.DevicePosition``).
 """
 from __future__ import annotations
 
@@ -150,7 +152,7 @@ _RESIDUAL = ("batch", None, "embed_act")
 
 def _block_apply(
     block, x, *, cfg: ModelConfig, rt: Runtime, mixer_kind: str, mlp_kind: str,
-    mode: str, cache: Optional[dict], pos: Optional[int], mark: bool = False,
+    mode: str, cache: Optional[dict], pos, mark: bool = False,
 ) -> Tuple[torch.Tensor, float, Optional[dict]]:
     """Pre-norm residual block.  Returns (x, aux_loss, new_cache).  ``mark``
     marks ``mixer_out`` and ``mlp_out`` for the ``names`` remat policy."""
@@ -291,13 +293,29 @@ def decode_step(
     rt: Runtime,
 ) -> Tuple[torch.Tensor, dict]:
     """One decode token for the whole batch.  Returns (logits (B,1,V), cache);
-    the cache is the one passed in, updated in place, with ``pos`` advanced."""
-    pos = int(cache["pos"])
+    the cache is the one passed in, updated in place, with ``pos`` advanced
+    (a host integer, or a new 0-d tensor where a tensor came in)."""
+    pos = L.device_position(cache["pos"])
     x = _embed(params, tokens, cfg, rt)
     x, _ = _walk_periods(params, cache["layers"], x, cfg=cfg, rt=rt,
                          mode="decode", pos=pos)
     logits = _head(params, x, cfg, rt)
-    return logits, {"pos": pos + 1, "layers": cache["layers"]}
+    nxt = pos.t + 1 if isinstance(pos, L.DevicePosition) else pos + 1
+    return logits, {"pos": nxt, "layers": cache["layers"]}
+
+
+def decode_limit(cfg: ModelConfig, cache: dict) -> Optional[int]:
+    """The first position ``decode_step`` may not write: the slots of a
+    cache that is no ring (attention without a window, MLA); None where
+    every layer's cache is a ring or a recurrent state."""
+    limits = []
+    for i, (mixer, _) in enumerate(cfg.layer_plan()[: cfg.layer_period()]):
+        c = cache["layers"][f"pos{i}"]["mixer"]
+        if mixer == "mla":
+            limits.append(c["ckv"].shape[2])
+        elif mixer == "attn" and not cfg.sliding_window:
+            limits.append(c["k"].shape[2])
+    return min(limits) if limits else None
 
 
 # ---------------------------------------------------------------------------

@@ -80,6 +80,13 @@ class Model:
             return encdec.decode_step(params, tokens, cache, cfg=self.cfg, rt=rt)
         return lm.decode_step(params, tokens, cache, cfg=self.cfg, rt=rt)
 
+    def decode_limit(self, cache) -> Optional[int]:
+        """The first position a decode step may not write into ``cache``
+        (None: every layer's cache is a ring or a recurrent state)."""
+        if self.is_encdec:
+            return encdec.decode_limit(self.cfg, cache)
+        return lm.decode_limit(self.cfg, cache)
+
     # -- shape stand-ins ----------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> Dict[str, InputSpec]:
         cfg = self.cfg
