@@ -14,24 +14,34 @@
 Builds the hand-written kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, then serves
 ``qwen2-0.5b`` at its published width through the port's normal entry point
-(``repro_torch.launch.serve``, whose decode step is one CUDA graph
-replayed a token) and checks, by the kernels' launch counts, that the
-served path really went through them.  The ``graphs`` phase decodes
+(``repro_torch.launch.serve``, whose prefill and decode step are each one
+CUDA graph, replayed a wave and a token) and checks, by the kernels'
+launch counts, that the served path really went through them.  Where the
+reference compiles a step with ``jax.jit``, the port on the card replays
+a CUDA graph: the served prefill and decode, the trainer's step and the
+tuner's measured step.  The ``graphs`` phase prefills and decodes
 qwen2-0.5b at its published width (and rwkv6-3b, minicpm3-4b and
-whisper-base at the ``families`` phase's sizes) from one prefill through
-the eager and the compiled decode step
-(``repro_torch.launch.serve_profile.decode_paths``): tokens and every
-step's logits must be equal bit for bit; it reports both paths' step
-seconds, tokens/s, idle share, launches and peak bytes.  The ``sweep`` phase closes
+whisper-base at the ``families`` phase's sizes) through the eager and
+the compiled steps (``repro_torch.launch.serve_profile.prefill_paths``,
+each from a zeroed cache, and ``decode_paths``, from one prefill): the
+prefills' logits and cache leaves, and the decodes' tokens and every
+step's logits, must be equal bit for bit; it reports both paths'
+seconds, idle share, launches and peak bytes.  The ``sweep`` phase closes
 the tuning loop: it tunes all five kernels at full-width shapes
 (``repro_torch.benchmarks.kernel_sweep``), persists the answers in a
 ``TuningDB``, re-runs warm (nothing is measured again) and serves the model
 with the DB, checking that the served kernels ran with the swept tiles.
 The ``train`` phase trains ``qwen2-0.5b`` at its published width and
 depth through ``repro_torch.launch.train`` (K1 and K2 forward, their
-oracles backward), checks that the loss falls, that the remat modes and
+oracles backward), eagerly twice and through the compiled step: the
+compiled losses and params must equal the eager ones bit for bit (or
+stay within the eager runs' own spread), and every learning rate the
+eager one; it checks that the loss falls, that the remat modes and
 microbatching agree, and that failure + resume through the array
-checkpointer replays the loss stream.
+checkpointer replays the loss stream, all through the compiled step.
+The ``sweep`` phase also holds each kernel's compiled measured step to
+its eager one (equal output, both step times), and ``paper`` forces a
+point that does not fit the card through the compiled evaluator.
 The ``bo`` phase runs the same loop with Bayesian optimisation, recording
 every measurement into a transfer corpus, times one GP fit + ranking
 on the CPU and on the card, and runs the port's async-loop gate
@@ -60,7 +70,7 @@ on this host), and expert parallelism on the card through a one-rank NCCL
 group (``repro_torch.benchmarks.ep_forward``), each part in a child process.
 The ``train_families`` phase trains the two scan families through
 ``repro_torch.launch.train``, f32, 2 x 2048 tokens: rwkv6-3b at its
-published width and depth (K1 and K5 forward) and one Jamba v0.1 period at
+published width, 16 of its 32 layers (K1 and K5 forward) and one Jamba v0.1 period at
 the width of the reference's ``--d-model 1024`` (K1, K2 and K4 forward),
 each under the cheapest remat mode that fits: falling loss, launches,
 step time, peak bytes, the forward / backward / optimizer split with the
@@ -199,11 +209,16 @@ SERVICE_BUDGET = 8
 # restored from the checkpoint taken before step 2, which then runs again
 TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "512", "--lr", "1e-3"]
 TRAIN_STEPS = 12
-REMAT_STEPS = 2
+# the eager step's median when this training path was first measured on
+# the card (PERF.md, §6), printed beside the compiled step's
+TRAIN_FIRST_EAGER_MEDIAN = 0.41496
+TRAIN_PROFILE_STEPS = 3  # steps of the compiled and of the eager step under the profiler
+REMAT_STEPS = 2          # two steps: the compiled step's second is its first replay
 RESUME_ARGS = ["--layers", "2", "--steps", "6"]
 RESUME_FAIL_ARGS = ["--checkpoint-every", "2", "--inject-failure", "3"]
 RESUME_REPLAYED = 2  # the step run twice: before the failure and after the restore
 # served in f32, the type the sweep measured (a TuningDB key has no type)
+SWEEP_EAGER_STEPS = 8  # eager calls of a kernel's default point (the evaluator's cap)
 SWEEP_SERVE_ARGS = ["--arch", "qwen2-0.5b", "--no-reduced", "--dtype", "f32",
                     "--requests", "8", "--prompt-len", "512", "--gen-len", "64",
                     "--batch", "8"]
@@ -221,6 +236,12 @@ PAPER_LAYERS = {"moe_lm": 2, "rwkv": 4}  # cut from 48 and 32
 # the point the cross-check and the parity check run: the train phase's
 # batch, tile (64 x 64 in f32) and remat
 PAPER_CHECK_POINT = {"batch": 8, "microbatches": 1, "remat": "none", "block_q": 64}
+# a point far past the card's memory (the train phase's batch 8 peaks near
+# 28 GB in f32): it must score -inf with ``oom`` in its meta
+PAPER_OOM_POINT = {"batch": 128, "microbatches": 1, "remat": "none", "block_q": 64}
+# dense_lm's best tokens/s of the three engines when the measured step ran
+# eagerly (PERF.md, §6)
+PAPER_EAGER_BEST = (10391, 10429)
 PAPER_STEP_RTOL = 0.15   # its step time against the train phase's median step
 PAPER_LOSS_RTOL = 1e-4   # its loss on the kernel path against the oracle path
 # host knobs: K1 at its sweep shape in a child process a thread count
@@ -1077,6 +1098,8 @@ def phase_serve(cx):
                          launches=counts, ran=ran))
     cx.launches = runs[0]["launches"]
     emit({"phase": "serve", "gpu": cx.smi, "args": SERVE_ARGS, "expected_launches": expected,
+          "prefill": "make_graphed_prefill_step (one CUDA graph, captured at the second "
+                     "wave and replayed at every later one)",
           "decode": "make_graphed_decode_step (one CUDA graph, replayed a token)",
           "runs": runs, "note": "the first run includes one-time costs (Triton compilation, "
                                 "first launches); both runs include their own weight initialisation "
@@ -1084,6 +1107,7 @@ def phase_serve(cx):
 
 
 GRAPHS_QWEN = {"B": 8, "prompt": 512, "steps": 63}  # launch/serve.py's served wave
+GRAPHS_PREFILL_REPS = 5  # timed prefills a path (median)
 GRAPHS_PROFILE_STEPS = {"qwen2-0.5b": 16, "families": 4}
 
 
@@ -1104,15 +1128,45 @@ def _graphed_equal(what, eager_logits, eager_toks, graphed_logits, graphed_toks)
                                  "eager one bit for bit")
 
 
-def _graphs_case(what, model, params, batch, steps, profile_steps):
-    """``decode_paths`` (eager, then compiled, from one prefill) on the
-    kernel runtime in bf16; fails unless the two agree bit for bit and
-    launch the same kernels a step."""
-    from repro_torch.launch.serve import runtime
-    from repro_torch.launch.serve_profile import decode_paths
+def _prefill_equal(what, eager, graphed):
+    """The compiled prefill against the eager one from one zeroed cache:
+    logits and every cache leaf equal bit for bit."""
+    import torch
 
-    report, kept = decode_paths(model, params, runtime(True, "bf16"), batch, steps,
+    (le, ce), (lg, cg) = eager, graphed
+    if not torch.equal(le, lg):
+        raise AssertionError(f"graphs {what}: prefill logits differ by up to "
+                             f"{max_err(le, lg):.3e}; the compiled prefill must equal the "
+                             "eager one bit for bit")
+    if len(ce) != len(cg):
+        raise AssertionError(f"graphs {what}: the prefills' caches have different leaves")
+    for i, (a, b) in enumerate(zip(ce, cg)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"graphs {what}: prefill cache leaf {i} differs")
+
+
+def _graphs_case(what, model, params, batch, steps, profile_steps):
+    """``prefill_paths`` (eager and compiled, each from a zeroed cache) and
+    ``decode_paths`` (eager, then compiled, from one prefill) on the kernel
+    runtime in bf16; fails unless each pair agrees bit for bit and
+    launches the same kernels a call."""
+    from repro_torch.launch.serve import runtime
+    from repro_torch.launch.serve_profile import decode_paths, prefill_paths
+
+    rt = runtime(True, "bf16")
+    B, S = batch["tokens"].shape
+    prefill, kept = prefill_paths(model, params, rt, batch, S + steps + 1,
+                                  reps=GRAPHS_PREFILL_REPS, top=8)
+    _prefill_equal(what, kept["eager"], kept["graphed"])
+    eager, graphed = prefill["paths"]["eager"], prefill["paths"]["graphed"]
+    if eager["kernel_launches_per_prefill"] != graphed["kernel_launches_per_prefill"]:
+        raise AssertionError(f"graphs {what}: kernel launches a prefill differ: eager "
+                             f"{eager['kernel_launches_per_prefill']}, compiled "
+                             f"{graphed['kernel_launches_per_prefill']}")
+    del kept
+    report, kept = decode_paths(model, params, rt, batch, steps,
                                 profile_steps=profile_steps, top=8)
+    report["prefill_paths"] = prefill
     (le, te), (lg, tg) = kept["eager"], kept["graphed"]
     _graphed_equal(what, le, te, lg, tg)
     eager, graphed = report["paths"]["eager"], report["paths"]["graphed"]
@@ -1124,16 +1178,19 @@ def _graphs_case(what, model, params, batch, steps, profile_steps):
 
 
 def phase_graphs(cx):
-    """The compiled decode step against the eager one, at the served sizes:
-    qwen2-0.5b at its published width, bf16, batch 8, prompt 512, 63 decode
-    steps (``launch/serve.py``'s wave), then rwkv6-3b, minicpm3-4b and
-    whisper-base at the sizes the ``families`` phase serves them
-    (``FAMILY_SERVE``).  Each from one prefill, through
-    ``serve_profile.decode_paths``: equal tokens and ``torch.equal`` logits
-    at every step, equal kernel launches a step, and both paths' step
-    seconds, tokens/s, device busy time, idle share, launches and peak
-    bytes.  (The Jamba period's compiled decode is held to its eager one in
-    the ``families`` phase, through ``_family_serve_steps``.)"""
+    """The compiled prefill and decode step against the eager ones, at the
+    served sizes: qwen2-0.5b at its published width, bf16, batch 8, prompt
+    512, 63 decode steps (``launch/serve.py``'s wave), then rwkv6-3b,
+    minicpm3-4b and whisper-base at the sizes the ``families`` phase serves
+    them (``FAMILY_SERVE``).  The prefills each from a zeroed cache,
+    through ``serve_profile.prefill_paths``: ``torch.equal`` logits and
+    cache leaves, equal kernel launches.  The decode steps from one
+    prefill, through ``serve_profile.decode_paths``: equal tokens and
+    ``torch.equal`` logits at every step, equal kernel launches a step.
+    Both paths' seconds, device busy time, idle share, launches and peak
+    bytes.  (The Jamba period's compiled prefill and decode are held to
+    their eager ones in the ``families`` phase, through
+    ``_family_serve_steps``.)"""
     import numpy as np
     import torch
 
@@ -1173,10 +1230,35 @@ def phase_graphs(cx):
           "seconds": time.perf_counter() - t_phase})
 
 
-def _train_run(args, mods):
-    """``launch.train.main(args)`` on the card: its log, the launches of the
-    kernels in ``mods`` during the run, its peak device memory and its
-    report line.  Fails on a loss that is not finite."""
+def _trainer_class(made, eager):
+    """``Trainer`` as ``launch.train`` builds it, each instance appended to
+    ``made``; with ``eager`` its step is the donated eager step
+    (``make_train_step(..., donate=True)``) where the card's is one CUDA
+    graph: the comparisons and the timed parts of a step need it."""
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    class Kept(Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def _build_step(self):
+            if not eager:
+                return super()._build_step()
+            self._step_fn = make_train_step(self.model, self.opt_cfg, self.rt,
+                                            microbatches=self.tcfg.microbatches,
+                                            tuning_db=self.rt.tuning_db, donate=True)
+
+    return Kept
+
+
+def _train_run(args, mods, keep=False, eager=False):
+    """``launch.train.main(args)`` on the card (with ``eager``, its trainer
+    steps eagerly): its log, the launches of the kernels in ``mods`` during
+    the run, its peak device memory (allocated and reserved) and its
+    report line, and with ``keep`` the trainer.  Fails on a loss that is
+    not finite."""
     import gc
 
     import torch
@@ -1186,20 +1268,57 @@ def _train_run(args, mods):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    made, saved = [], train.Trainer
+    train.Trainer = _trainer_class(made, eager)
     _zero_counts(mods)  # just before the main path ...
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        log = train.main(args)
+    try:
+        with contextlib.redirect_stdout(buf):
+            log = train.main(args)
+    finally:
+        train.Trainer = saved
     counts = _counts(mods)  # ... and read just after
     torch.cuda.synchronize()
     losses = [m["loss"] for m in log]
     if not losses or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train {args}: losses {losses}")
     report = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[train] done")]
-    return {"log": log, "losses": losses, "grad_norms": [m["grad_norm"] for m in log],
-            "seconds": [m["seconds"] for m in log], "launches": counts,
-            "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
-            "report": report[-1] if report else None}
+    out = {"log": log, "losses": losses, "grad_norms": [m["grad_norm"] for m in log],
+           "lrs": [m["lr"] for m in log], "seconds": [m["seconds"] for m in log],
+           "launches": counts, "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+           "peak_reserved_bytes": int(torch.cuda.max_memory_reserved()),
+           "report": report[-1] if report else None}
+    if keep:
+        out["trainer"] = made[0]
+    return out
+
+
+def _step_profile(trainer, steps):
+    """Device-busy seconds and launches of one more step of ``trainer``
+    (``steps`` of them, each on the run's first batch) under the profiler."""
+    import torch
+
+    from repro_torch.launch.serve_profile import _profile
+
+    batch = {k: torch.from_numpy(v).to(trainer.device)
+             for k, v in trainer.data.batch_at(0).items()}
+
+    def run():
+        for _ in range(steps):
+            trainer.params, trainer.opt_state, _ = trainer._step_fn(
+                trainer.params, trainer.opt_state, batch)
+
+    run()  # the eager step of a graph not yet warm, and its capture, come first
+    torch.cuda.synchronize()
+    prof = _profile(run, steps, 6)
+    return {"busy_seconds": prof["busy_s"], "launches": prof["launches"],
+            "top_device": prof["top_device"]}
+
+
+def _params_spread(a, b):
+    """The largest |a - b| over the leaves of two runs' final params (0.0:
+    equal bit for bit)."""
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
 def _check_same_stream(what, got, want, rtol):
@@ -1208,6 +1327,22 @@ def _check_same_stream(what, got, want, rtol):
         a, b = got[key], want[key][:len(got[key])]
         if len(a) != len(b) or any(abs(x - y) > rtol * abs(y) for x, y in zip(a, b)):
             raise AssertionError(f"train {what}: {key} {a} != {b} (rtol {rtol})")
+
+
+def _synced_seconds(fn, reps):
+    """Mean seconds of ``fn()``, each call ended by a synchronise (as
+    ``WallClockEvaluator`` times a step), after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sum(times) / reps
 
 
 def _host_seconds(fn, reps):
@@ -1303,14 +1438,16 @@ def _step_parts(parts):
 
 
 def _instrumented(args, mods, tap=None):
-    """``_train_run(args, mods)`` with each step's forward / backward /
-    optimizer seconds (``_step_parts``) and the device time of its oracle
-    recomputes (``_oracle_clock``) taken as it runs, and ``tap`` (a context
-    manager) active: the run, and what was taken."""
+    """``_train_run(args, mods, keep=True, eager=True)`` (an eager run: the
+    parts of a step are timed one by one, which a CUDA graph's replay does
+    not allow) with each step's forward / backward / optimizer
+    seconds (``_step_parts``) and the device time of its oracle recomputes
+    (``_oracle_clock``) taken as it runs, and ``tap`` (a context manager)
+    active: the run, and what was taken."""
     rec = {"parts": {"forward": [], "forward_backward": [], "optimizer": []}, "oracle": []}
     with _step_parts(rec["parts"]), tap or contextlib.nullcontext(), \
             _oracle_clock(rec["oracle"], lambda: len(rec["parts"]["optimizer"])):
-        run = _train_run(args, mods)
+        run = _train_run(args, mods, keep=True, eager=True)
     return run, rec
 
 
@@ -1412,6 +1549,7 @@ def _train_phase(cx, cfg, base_args, device):
 
     import torch
 
+    from repro_torch.models.params import tree_leaves
     from repro_torch.models.runtime import REMAT_MODES
 
     # every kernel's count, zeroed before each run and read after it: the
@@ -1431,24 +1569,74 @@ def _train_phase(cx, cfg, base_args, device):
             raise AssertionError(f"train {what}: launches {run['launches']} != {want}: the "
                                  "train path ran past a kernel")
 
-    # 1. the main path: 12 steps through the entry point
-    main, rec = _instrumented(base_args + ["--steps", str(TRAIN_STEPS)], mods)
+    # 1. the eager step twice (the first run also splits each step's
+    # time), then the main path: 12 compiled steps through the entry point,
+    # from the same weights and batches
+    steps_args = base_args + ["--steps", str(TRAIN_STEPS)]
+    # (each run's final params kept on the host: on the card they would
+    # count in the next run's peak bytes)
+    eager, rec = _instrumented(steps_args, mods)
+    eager["params"] = [t.cpu() for t in tree_leaves(eager.pop("trainer").params)]
+    eager2 = _train_run(steps_args, mods, keep=True, eager=True)
+    trainer = eager2.pop("trainer")
+    eager2["params"] = [t.cpu() for t in tree_leaves(trainer.params)]
+    eager_profile = _step_profile(trainer, TRAIN_PROFILE_STEPS)  # steps past the run's
+    del trainer
+    main = _train_run(steps_args, mods, keep=True)
     expect(main, "main", TRAIN_STEPS, per_step)
+    for run in (eager, eager2):
+        expect(run, "eager", TRAIN_STEPS, per_step)
     if not main["losses"][-1] < main["losses"][0]:
         raise AssertionError(f"train: the loss did not fall: {main['losses']}")
+    trainer = main.pop("trainer")
+    main["params"] = [t.cpu() for t in tree_leaves(trainer.params)]
+    if main["lrs"] != eager["lrs"]:
+        raise AssertionError(f"train: the compiled step's learning rates {main['lrs']} != "
+                             f"the eager step's {eager['lrs']}")
+    # the eager step against itself: bit for bit, or the spread the compiled
+    # step must stay within
+    spread = {k: max(abs(x - y) for x, y in zip(eager[k], eager2[k]))
+              for k in ("losses", "grad_norms")}
+    spread["params"] = _params_spread(eager["params"], eager2["params"])
+    apart = {k: max(abs(x - y) for x, y in zip(main[k], eager[k]))
+             for k in ("losses", "grad_norms")}
+    apart["params"] = _params_spread(main["params"], eager["params"])
+    reproducible = not any(spread.values())
+    if any(apart[k] > spread[k] for k in apart):
+        raise AssertionError(f"train: the compiled step is {apart} from the eager one, "
+                             f"whose own runs are {spread} apart")
+    graph_profile = _step_profile(trainer, TRAIN_PROFILE_STEPS)  # steps past the run's
+    del trainer, main["params"], eager["params"], eager2["params"]
     cx.train_launches = main["launches"]
-    med = statistics.median(main["seconds"])
+    med, eager_med = (statistics.median(r["seconds"][1:]) for r in (main, eager))
     cx.train_median_step = med
-    emit(dict(common, part="main", steps=TRAIN_STEPS, losses=main["losses"],
-              grad_norms=main["grad_norms"], step_seconds=main["seconds"],
-              median_step_seconds=med, tokens_per_s=B * S / med,
-              peak_memory_bytes=main["peak_memory_bytes"], launches=main["launches"],
+    emit(dict(common, part="main", step="make_graphed_train_step (one CUDA graph)",
+              steps=TRAIN_STEPS, losses=main["losses"], grad_norms=main["grad_norms"],
+              lrs=main["lrs"], step_seconds=main["seconds"], median_step_seconds=med,
+              median_of=TRAIN_STEPS - 1, tokens_per_s=B * S / med,
+              first_eager_median_step_seconds=TRAIN_FIRST_EAGER_MEDIAN,
+              device_busy_seconds_per_step=graph_profile["busy_seconds"],
+              device_idle_share_of_step=1.0 - graph_profile["busy_seconds"] / med,
+              device_launches_per_step=graph_profile["launches"],
+              top_device=graph_profile["top_device"],
+              peak_memory_bytes=main["peak_memory_bytes"],
+              peak_reserved_bytes=main["peak_reserved_bytes"], launches=main["launches"],
               launches_per_step={k: v / TRAIN_STEPS for k, v in main["launches"].items()},
               report=main["report"]))
+    emit(dict(common, part="eager_vs_compiled", eager_reproducible=reproducible,
+              eager_spread=spread, compiled_vs_eager=apart,
+              equal_bit_for_bit=not any(apart.values()), lrs_equal=True,
+              eager_losses=eager["losses"], eager_losses_again=eager2["losses"],
+              eager_step_seconds=eager["seconds"], eager_median_step_seconds=eager_med,
+              eager_device_busy_seconds_per_step=eager_profile["busy_seconds"],
+              eager_device_idle_share_of_step=1.0 - eager_profile["busy_seconds"] / eager_med,
+              eager_device_launches_per_step=eager_profile["launches"],
+              eager_peak_memory_bytes=eager["peak_memory_bytes"],
+              eager_peak_reserved_bytes=eager["peak_reserved_bytes"]))
 
-    # 2. where a step's time goes (in the main run's steps)
+    # 2. where a step's time goes (in the first eager run's steps)
     split = _split(rec, TRAIN_STEPS)
-    emit(dict(common, part="split", **split,
+    emit(dict(common, part="split", step="eager", **split,
               **_oracle_estimates(cfg, B, S, device, split["backward_seconds"])))
 
     # 3. the remat modes, from the same params on the same batches; every
@@ -1472,14 +1660,15 @@ def _train_phase(cx, cfg, base_args, device):
         for mode, r in runs.items()}))
     del runs
 
-    # 4. two microbatches against one
-    mb = _train_run(base_args + ["--steps", "1", "--microbatches", "2"], mods)
+    # 4. two microbatches against one (two steps: the second one a replay)
+    mb = _train_run(base_args + ["--steps", str(REMAT_STEPS), "--microbatches", "2"], mods)
     _check_same_stream("microbatches 2 vs 1", mb, main, 1e-5)
-    expect(mb, "microbatches", 2, per_step)  # a forward a microbatch
+    expect(mb, "microbatches", 2 * REMAT_STEPS, per_step)  # a forward a microbatch
     emit(dict(common, part="microbatches", microbatches=2, tolerance_rel=1e-5,
               loss=mb["losses"][0], loss_one_batch=main["losses"][0],
-              grad_norm=mb["grad_norms"][0], grad_norm_one_batch=main["grad_norms"][0],
-              peak_memory_bytes=mb["peak_memory_bytes"], step_seconds=mb["seconds"][0]))
+              losses=mb["losses"], grad_norm=mb["grad_norms"][0],
+              grad_norm_one_batch=main["grad_norms"][0],
+              peak_memory_bytes=mb["peak_memory_bytes"], step_seconds=mb["seconds"]))
 
     # 5. failure and resume through the array checkpointer
     args = base_args + RESUME_ARGS
@@ -1622,6 +1811,7 @@ def phase_sweep(cx):
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.launch import serve
+    from repro_torch.runtime.graphs import GraphedStep
     from repro_torch.tuning.evaluator import WallClockEvaluator
     from repro_torch.tuning.kernel_objective import KERNELS
     from repro_torch.tuning.tundb import TuningDB, hardware_fingerprint
@@ -1659,25 +1849,44 @@ def phase_sweep(cx):
     if not lookup_ms < 1.0:
         raise AssertionError(f"sweep: median DB lookup {lookup_ms:.4f} ms >= 1 ms")
 
-    # the defaults, measured the same way (outside the counted window)
+    # the defaults, measured the same way (outside the counted window); the
+    # eager step timed as the evaluator times a replay (each call ended by a
+    # synchronise), and the compiled step's output against the eager one's
+    # on the same inputs
     recorded = {}
     for r in rows:
         name, shape, spec = r["kernel"], r["shape"], KERNELS[r["kernel"]]
-        wall = WallClockEvaluator(lambda p, spec=spec, shape=shape: spec.build(shape, p, "cuda"),
-                                  warmup=1, iters=2, rel_halfwidth=0.5)
-        d_value, d_meta = wall({})
+        build = lambda p, spec=spec, shape=shape: spec.build(shape, p, "cuda")  # noqa: E731
+        d_value, d_meta = WallClockEvaluator(build, warmup=1, iters=2, rel_halfwidth=0.5,
+                                             name=name)({})
+        step, args, examples = build({})
+        eager_seconds = _synced_seconds(lambda: step(*args), SWEEP_EAGER_STEPS)
+        want = step(*args).clone()
+        graph = GraphedStep(name, "measured step")
+        run = lambda inputs=None: step(*args)  # noqa: E731
+        graph.run({"arguments": args}, {}, run, run)  # eager
+        got = graph.run({"arguments": args}, {}, run, run).clone()  # captured, replayed
+        graph.release()
+        if not torch.equal(got, want):
+            raise AssertionError(f"sweep {name}: the compiled step's output differs from the "
+                                 f"eager one's by up to {max_err(got, want):.3e}")
+        del step, args, want, got, graph
         cx.sweep_defaults[name] = d_value
         recorded[name] = warm_db.lookup(name, shape)["config"]
         emit({"phase": "sweep", "kernel": name, "shape": shape, "dtype": "f32",
               "engine": SWEEP_ARGS["algorithm"], "budget": SWEEP_ARGS["budget"],
               "default_config": spec.config({}), "default_runs_as": spec.effective(shape, {}),
               "default_value": d_value, "default_step_seconds": d_meta["step_seconds"],
+              "default_eager_value": examples / eager_seconds,
+              "default_eager_step_seconds": eager_seconds,
+              "default_compiled_equals_eager": True,
               "best_config": r["best"], "best_runs_as": spec.effective(shape, r["best"]),
               "best_value": r["value"], "best_step_seconds": r["step_seconds"],
               "gain": r["value"] / d_value, "measurements": r["measurements"],
               "n_evals": r["n_evals"], "seconds": r["seconds"], "launches": counts[name],
-              "value_unit": "examples/s (WallClockEvaluator, host clock, one synchronise "
-                            "per step)"})
+              "value_unit": "examples/s (WallClockEvaluator: replays of one CUDA graph of "
+                            "the step; the eager step called directly; host clock, one "
+                            "synchronise per step)"})
 
     # serve with the swept DB; spies on the consults and on what each kernel ran
     served = ("flash_attention", "decode_attention", "rmsnorm")
@@ -1823,7 +2032,7 @@ def phase_bo(cx):
         default = getattr(cx, "sweep_defaults", {}).get(name)
         if default is None:  # the sweep phase did not run: measure it here
             wall = WallClockEvaluator(lambda p, spec=spec, shape=shape: spec.build(shape, p, "cuda"),
-                                      warmup=1, iters=2, rel_halfwidth=0.5)
+                                      warmup=1, iters=2, rel_halfwidth=0.5, name=name)
             default = wall({})[0]
         ga = getattr(cx, "sweep_rows", {}).get(name)
         emit({"phase": "bo", "kernel": name, "shape": shape, "dtype": "f32",
@@ -1838,8 +2047,9 @@ def phase_bo(cx):
               "ask_seconds_median": statistics.median(asks), "ask_seconds_max": max(asks),
               "ask_seconds_total": sum(asks), "ask_share": sum(asks) / r["seconds"],
               "ask_seconds": asks, "launches": counts[name],
-              "value_unit": "examples/s (WallClockEvaluator, host clock, one synchronise "
-                            "per step)"})
+              "value_unit": "examples/s (WallClockEvaluator: replays of one CUDA graph of "
+                            "the step; the eager step called directly; host clock, one "
+                            "synchronise per step)"})
     gp_ms = {dev: {rows_: _gp_ask_ms(dev, rows_) for rows_ in BO_GP_ROWS}
              for dev in ("cpu", "cuda")}
     emit({"phase": "bo", "gpu": cx.smi, "corpus_rows": len(records), "measurements": measured,
@@ -2004,10 +2214,15 @@ def phase_service(cx):
                     proc.wait()
         for f in logs.values():
             f.close()
-    hist = json.loads((state / "daemon" / "jobs" / job_id / "history.json").read_text())
+    hist_path = state / "daemon" / "jobs" / job_id / "history.json"
+    hist = json.loads(hist_path.read_text()) if hist_path.exists() else []
     if st["state"] != "done" or st["n_evals"] != SERVICE_BUDGET or len(hist) != SERVICE_BUDGET:
-        raise AssertionError(f"service: job {job_id} ended {st['state']} with "
-                             f"{st['n_evals']} results: {st.get('error')}")
+        tails = {n: (state / f"{n}.log").read_text().splitlines()[-40:] for n in logs}
+        raise AssertionError(
+            f"service: job {job_id} ended {st['state']} with {st['n_evals']} results "
+            f"({len(hist)} in its history): {st.get('error')}\n"
+            + "\n".join(f"--- the end of the {n}'s log:\n" + "\n".join(lines)
+                        for n, lines in tails.items()))
     bad = [e for e in hist if not math.isfinite(e["value"]) or e["meta"].get("kernel") != "ssm_scan"
            or not math.isfinite(e["meta"].get("step_seconds", math.nan))]
     if bad:
@@ -2172,20 +2387,30 @@ def _family_forward(model, params, batch, rt, mods, clock):
 
 def _family_serve_steps(model, params, batch, rt, mods, steps, forced=None, graphed=False):
     """Prefill + ``steps`` decode steps through ``serve/serve_step.py``:
-    the logits of every step (f32), the greedy tokens, and the launches.
-    ``forced`` feeds these tokens instead of the greedy ones (so two paths
-    see the same inputs); ``graphed`` decodes through the compiled step."""
+    the logits of every step (f32), the greedy tokens, the launches and
+    the cache leaves right after the prefill (clones).  ``forced`` feeds
+    these tokens instead of the greedy ones (so two paths see the same
+    inputs); ``graphed`` prefills and decodes through the compiled steps
+    (the prefill's first, eager call comes first, on the zeroed cache, and
+    the prefill kept is a replay of its graph)."""
     import torch
 
-    from repro_torch.models.params import split_params
+    from repro_torch.models.params import split_params, tree_leaves
     from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
-                                              make_graphed_decode_step, make_prefill_step)
+                                              make_graphed_decode_step,
+                                              make_graphed_prefill_step, make_prefill_step,
+                                              reset_cache)
 
     B, S = batch["tokens"].shape
     cache, _ = split_params(model.init_cache(B, S + steps + 1, device=batch["tokens"].device))
+    prefill = (make_graphed_prefill_step if graphed else make_prefill_step)(model, rt)
+    if graphed:
+        prefill(params, batch, cache)
+        cache = reset_cache(cache)
     _zero_counts(mods)
-    logits, cache = make_prefill_step(model, rt)(params, batch, cache)
+    logits, cache = prefill(params, batch, cache)
     prefill_counts = _counts(mods)
+    filled = [t.clone() for t in tree_leaves(cache["layers"])]
     decode = (make_graphed_decode_step if graphed else make_decode_step)(model, rt)
     outs, toks = [logits.float()], [greedy_sample(logits)]
     _zero_counts(mods)
@@ -2194,15 +2419,16 @@ def _family_serve_steps(model, params, batch, rt, mods, steps, forced=None, grap
         outs.append((logits.clone() if graphed else logits).float())  # a replay overwrites it
         toks.append(greedy_sample(logits))
     torch.cuda.synchronize()
-    return torch.cat(outs, dim=1), toks, {"prefill": prefill_counts, "decode": _counts(mods)}
+    return (torch.cat(outs, dim=1), toks, {"prefill": prefill_counts, "decode": _counts(mods)},
+            filled)
 
 
 def _family_serve_f32(what, model, params, batch, rt, mods, tokens, counts, total):
     """The kernel path's prefill + decode again in f32 on the same weights
     and tokens: its logits, for the f32 comparison.  It must launch what the
     bf16 run launched (``counts``); both runs' launches go into ``total``."""
-    k32, _, c32 = _family_serve_steps(model, params, batch, rt, mods, FAMILY_DECODE,
-                                      forced=tokens)
+    k32, _, c32, _ = _family_serve_steps(model, params, batch, rt, mods, FAMILY_DECODE,
+                                         forced=tokens)
     _family_expect(f"{what} f32 prefill+decode", c32, counts)
     for c in (counts, c32):
         _add_counts(total, c["prefill"])
@@ -2380,24 +2606,25 @@ def phase_families(cx):
         torch.cuda.empty_cache()
         # prefill + decode through serve_step: K2 / K3 on the attention layer
         sb = {"tokens": tokens[:, :512]}
-        lk, tk, ck = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
+        lk, tk, ck, fk = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
         _family_expect("jamba prefill", ck["prefill"], dict(
             zero, rmsnorm=2 * cfg.num_layers + 1, flash_attention=n_attn))
         _family_expect("jamba decode", ck["decode"], dict(
             zero, rmsnorm=(2 * cfg.num_layers + 1) * FAMILY_DECODE,
             decode_attention=n_attn * FAMILY_DECODE))
-        # the same decode through the compiled step: equal bit for bit
-        lg, tg, cg = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE,
-                                         forced=tk, graphed=True)
+        # the same prefill and decode through the compiled steps: equal bit for bit
+        lg, tg, cg, fg = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods,
+                                             FAMILY_DECODE, forced=tk, graphed=True)
+        _prefill_equal("jamba", (lk[:, 0], fk), (lg[:, 0], fg))
         _graphed_equal("jamba", [lk[:, i] for i in range(lk.shape[1])], tk,
                        [lg[:, i] for i in range(lg.shape[1])], tg)
         _family_expect("jamba graphed prefill+decode", cg, ck)
         _add_counts(total, cg["prefill"])
         _add_counts(total, cg["decode"])
-        del lg
+        del lg, fg, fk
         k32 = _family_serve_f32("jamba", model, p16, sb, rt_k["f32"], mods, tk, ck, total)
-        lo, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
-        l32, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
+        lo, _, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
+        l32, _, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
         cmp_serve = _family_compare("jamba prefill+decode", lk, lo, l32, k32=k32)
         del model, p16, lk, lo, l32, k32
         torch.cuda.empty_cache()
@@ -2409,7 +2636,8 @@ def phase_families(cx):
                     cfg.moe.capacity_factor * FAMILY_S * cfg.moe.top_k / cfg.moe.num_experts)},
             "flash_kernel": flash_kernel, "forward": infos, "compare": cmp,
             "serve_steps": {"prompt": 512, "decode_steps": FAMILY_DECODE, "launches": ck,
-                            "compare": cmp_serve, "graphed_equal_bit_for_bit": True},
+                            "compare": cmp_serve, "graphed_equal_bit_for_bit": True,
+                            "graphed_prefill_equal_bit_for_bit": True},
             "seconds": time.perf_counter() - t0}
         emit({"phase": "families", "model": "jamba-v0.1-52b", **report["jamba-v0.1-52b"]})
         _family_route("jamba", flash_kernel, "wgmma")
@@ -2423,7 +2651,7 @@ def phase_families(cx):
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (FAMILY_B, 512))
                                   .astype(np.int32)).cuda()
         sb = {"tokens": tokens}
-        lk, tk, ck = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
+        lk, tk, ck, _ = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
         flash_kernel = fla.flash_attention.last_kernel
         norms = 4 * L + 1  # norm1, norm2, q_norm, kv_norm a layer, the final norm
         _family_expect("minicpm3 prefill", ck["prefill"], dict(zero, rmsnorm=norms,
@@ -2431,8 +2659,8 @@ def phase_families(cx):
         # decode attends in the latent space on the oracle, as the reference
         _family_expect("minicpm3 decode", ck["decode"], dict(zero, rmsnorm=norms * FAMILY_DECODE))
         k32 = _family_serve_f32("minicpm3-4b", model, p16, sb, rt_k["f32"], mods, tk, ck, total)
-        lo, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
-        l32, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
+        lo, _, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
+        l32, _, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
         cmp = _family_compare("minicpm3-4b", lk, lo, l32, k32=k32)
         del model, p16, lk, lo, l32, k32
         torch.cuda.empty_cache()
@@ -2460,13 +2688,13 @@ def phase_families(cx):
                           device=tokens.device)
         sb = {"tokens": tokens, "encoder_embeds": enc}
         E, Ld = cfg.encoder_layers, cfg.num_layers
-        lk, tk, ck = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
+        lk, tk, ck, _ = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
         _family_expect("whisper prefill", ck["prefill"], dict(zero, flash_attention=E + 2 * Ld))
         _family_expect("whisper decode", ck["decode"], dict(
             zero, decode_attention=2 * Ld * FAMILY_DECODE))
         k32 = _family_serve_f32("whisper-base", model, p16, sb, rt_k["f32"], mods, tk, ck, total)
-        lo, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
-        l32, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
+        lo, _, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
+        l32, _, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
         cmp = _family_compare("whisper-base", lk, lo, l32, k32=k32)
         del model, p16, lk, lo, l32, k32
         torch.cuda.empty_cache()
@@ -2515,10 +2743,26 @@ def _paper_tune(name, ev, space, mods, budget, algos):
 
     from repro_torch.examples import quickstart
 
+    seen = []
+
+    class Seen(type(ev)):  # every point's answer, to say why a run found no finite one
+        def __call__(self, point, fidelity=None):
+            try:
+                out = super().__call__(point, fidelity)
+            except Exception as e:
+                seen.append((point, repr(e)[:400]))
+                raise
+            seen.append((point, out[0], out[1].get("error")))
+            return out
+
+    ev.__class__ = Seen
     _zero_counts(mods)
     t0 = time.perf_counter()
-    results = quickstart.tune(ev, space, budget=budget, seed=0, algos=algos,
-                              verbose=False, emit=lambda *_: None)
+    try:
+        results = quickstart.tune(ev, space, budget=budget, seed=0, algos=algos,
+                                  verbose=False, emit=lambda *_: None)
+    except AssertionError as e:
+        raise AssertionError(f"paper {name}: {e}: {seen}") from e
     seconds = time.perf_counter() - t0
     counts = _counts(mods)
     torch.cuda.synchronize()
@@ -2587,6 +2831,14 @@ def phase_paper(cx):
             raise AssertionError(f"paper dense_lm: {k} was not launched")
     _add_counts(total, run["launches"])
 
+    # a point whose batch does not fit the card: -inf as a failed run, and
+    # the next point (the cross-check's) measures as before
+    oom_value, oom_meta = ev(PAPER_OOM_POINT)
+    if oom_value != -math.inf or not oom_meta.get("oom"):
+        raise AssertionError(f"paper: the out-of-memory point scored {oom_value}: {oom_meta}")
+    emit({"phase": "paper", "workload": "dense_lm", "part": "out_of_memory",
+          "point": PAPER_OOM_POINT, "value": oom_value, "meta": oom_meta})
+
     # the cross-check: the train phase's step through the workload's harness
     value, meta = ev(PAPER_CHECK_POINT)
     check = {"point": PAPER_CHECK_POINT, "value": value, "step_seconds": meta.get("step_seconds"),
@@ -2620,6 +2872,7 @@ def phase_paper(cx):
         raise AssertionError(f"paper parity: losses {losses}, rel {rel:.3e}")
     report["dense_lm"] = dict(run, layers=cfg.num_layers, d_model=cfg.d_model, seq=PAPER_SEQ,
                               params=cfg.param_counts()["total"], check=check,
+                              eager_best_tokens_per_s_range=PAPER_EAGER_BEST,
                               parity={"losses": losses, "rel": rel, "rtol": PAPER_LOSS_RTOL})
     emit({"phase": "paper", "workload": "dense_lm", **report["dense_lm"]})
     del ev, params
@@ -3287,19 +3540,31 @@ def _multichip_body(cx, tmp, runs, t_phase):
 # not at 1024 or at batch 2), and the scan each runs.  rwkv6-3b's loss
 # at lr 1e-3 rises while the learning rate warms up (20 steps) and falls
 # below its first value from step 36 on, on the kernel path and on the
-# chunked oracles alike (PERF.md, `train_families`): its main run takes 44 steps.
+# chunked oracles alike at full depth (PERF.md, `train_families`): its
+# main run takes 44 steps.  Its depth is cut to 16 of 32 layers (width,
+# steps and the loss check kept), 8 where 16 does not fit: the full depth
+# took 356 s of the script's 1,200, and the compiled steps of the other
+# phases need part of them (the full depth, compiled, is measured once
+# through ``launch.train`` itself: PERF.md).  The chunked oracles' run of
+# the check at 4 layers keeps the remat mode full depth needed
+# (``check_remat``, ``names``).  ``expect`` is the cut and remat mode
+# that fit on the H100 when PERF.md's figures were taken; a run that fits
+# another says so in a ``note`` line.
 TRAIN_FAMILIES = {
     "rwkv6-3b": {"args": ["--arch", "rwkv6-3b", "--batch", "2", "--seq", "2048",
                           "--lr", "1e-3"], "steps": 44,
-                 "cuts": ([], ["--layers", "24"], ["--layers", "16"]),
-                 "check": ["--layers", "4"], "scan": "gla_scan"},
+                 "cuts": (["--layers", "16"], ["--layers", "8"]),
+                 "expect": {"cut": ["--layers", "16"], "remat": "none"},
+                 "check": ["--layers", "4"], "check_remat": "names", "scan": "gla_scan"},
     "jamba-v0.1-52b": {"args": ["--arch", "jamba-v0.1-52b", "--layers", "8", "--batch", "2",
                                 "--seq", "2048", "--lr", "1e-3"], "steps": 7,
                        "cuts": (["--d-model", "1024"], ["--d-model", "512"]),
+                       "expect": {"cut": ["--d-model", "1024"], "remat": "none"},
                        "check": ["--d-model", "512", "--batch", "1"], "scan": "ssm_scan"},
 }
 TRAIN_FAMILY_REMAT = ("none", "names", "dots", "full")  # cheapest first
 TRAIN_FAMILY_CHECK_STEPS = 3  # kernel path against chunked path
+TRAIN_FAMILY_SPLIT_STEPS = 3  # eager steps whose parts are timed (median of the last 2)
 TRAIN_FAMILY_LOSS_RTOL = 1e-3
 
 
@@ -3394,11 +3659,9 @@ def _tap_scan(name, found, calls):
 
 def _family_fit(name, spec, mods):
     """The main run: the first cut whose cheapest remat mode fits one card
-    trains ``spec["steps"]`` steps through the entry point, with each step's
-    forward / backward / optimizer seconds, the oracle recomputes' device
-    time and the first step's scan calls against the plain version taken
-    as it runs.  Every try that ran out of device memory is kept with the
-    allocator's message."""
+    trains ``spec["steps"]`` compiled steps through the entry point.  Every
+    try that ran out of device memory is kept with the allocator's
+    message."""
     import torch
 
     from repro_torch.launch import train
@@ -3408,17 +3671,29 @@ def _family_fit(name, spec, mods):
         for mode in TRAIN_FAMILY_REMAT:
             args = spec["args"] + cut + ["--steps", str(spec["steps"]), "--remat", mode]
             cfg = train.model_config(train.parse_args(args))
-            found = {"calls": 0}
-            tap = _tap_scan(spec["scan"], found, _family_launches(cfg, "none")[spec["scan"]])
             try:
-                run, rec = _instrumented(args, mods, tap)
+                run = _train_run(args, mods)
             except torch.cuda.OutOfMemoryError as e:
                 tried.append({"cut": cut, "remat": mode,
                               "out_of_memory": str(e).splitlines()[0][:300]})
                 continue
             tried.append({"cut": cut, "remat": mode, "fits": True})
-            return args, cfg, mode, run, dict(rec, tap=found), tried
+            return args, cfg, mode, run, tried
     raise AssertionError(f"train_families {name}: no cut and remat mode fits one card: {tried}")
+
+
+def _family_split(spec, args, cfg, mods):
+    """TRAIN_FAMILY_SPLIT_STEPS eager steps of the main run's
+    cut and remat mode, with each step's forward / backward / optimizer
+    seconds, the oracle recomputes' device time and the first step's scan
+    calls against the plain version taken as it runs."""
+    i = args.index("--steps")
+    split_args = args[:i] + ["--steps", str(TRAIN_FAMILY_SPLIT_STEPS)] + args[i + 2:]
+    found = {"calls": 0}
+    tap = _tap_scan(spec["scan"], found, _family_launches(cfg, "none")[spec["scan"]])
+    run, rec = _instrumented(split_args, mods, tap)
+    del run["trainer"]
+    return run, dict(rec, tap=found)
 
 
 def _family_check(cfg, mode, B, S, lr):
@@ -3460,16 +3735,19 @@ def _family_check(cfg, mode, B, S, lr):
 def phase_train_families(cx):
     """Training the two scan families on the card through
     ``repro_torch.launch.train``, f32, 2 x 2048 tokens: rwkv6-3b at full
-    width and depth (K1 + K5 forward), one Jamba v0.1 period at the width
-    ``--d-model`` gives (K1 + K2 + K4 forward; the MoE's 16 experts stay
-    14,336 wide), each under the cheapest remat mode that fits.  Each run:
-    a finite loss, lower at the last step than at the first; launches a
-    step as the model's layers say; the median step, tokens/s and peak
-    bytes; forward / backward / optimizer seconds and the scans' oracle
-    recompute inside the backward (CUDA events around each
-    ``_RefVJP.backward``); each scan call of the first step's forward
-    against the kernel's plain version; and three steps on the kernel path
-    against the chunked oracles from the same weights."""
+    width, 16 of its 32 layers (K1 + K5 forward; 8 where 16 does not
+    fit), one Jamba v0.1 period at
+    the width ``--d-model`` gives (K1 + K2 + K4 forward; the MoE's 16
+    experts stay 14,336 wide), each under the cheapest remat mode that
+    fits, through the compiled step.  Each run: a finite loss, lower at the
+    last step than at the first; launches a step as the model's layers
+    say; the median step, tokens/s and peak bytes (allocated and
+    reserved).  Then, in three eager steps of the same cut: forward /
+    backward / optimizer seconds and the scans' oracle recompute inside
+    the backward (CUDA events around each ``_RefVJP.backward``), and each
+    scan call of the first step's forward against the kernel's plain
+    version.  Last, three steps on the kernel path against the chunked
+    oracles from the same weights."""
     import gc
     import statistics
 
@@ -3487,7 +3765,7 @@ def phase_train_families(cx):
     t_phase = time.perf_counter()
     for name, spec in TRAIN_FAMILIES.items():
         t0 = time.perf_counter()
-        args, cfg, mode, main, rec, tried = _family_fit(name, spec, mods)
+        args, cfg, mode, main, tried = _family_fit(name, spec, mods)
         targs = train.parse_args(args)
         B, S, steps, scan = targs.batch, targs.seq, spec["steps"], spec["scan"]
         n_params = sum(p.numel() for p in tree_leaves(
@@ -3496,6 +3774,11 @@ def phase_train_families(cx):
                   "layers": cfg.num_layers, "d_model": cfg.d_model, "params": n_params,
                   "dtype": "f32", "batch": B, "seq": S, "remat": mode}
         emit(dict(common, part="fit", args=args, tried=tried))
+        fit = {"cut": tried[-1]["cut"], "remat": mode}
+        if fit != spec["expect"]:
+            emit(dict(common, part="note", note=f"the run fell back to {fit}; PERF.md's "
+                      f"figures are of {spec['expect']}: the tries between ran out of "
+                      "device memory"))
 
         per_step = _family_launches(cfg, mode)
         want = {k: v * steps for k, v in per_step.items()}
@@ -3505,19 +3788,25 @@ def phase_train_families(cx):
         for k, v in main["launches"].items():
             cx.train_family_launches[k] += v
         med = statistics.median(main["seconds"][1:])
-        emit(dict(common, part="main", steps=steps, losses=main["losses"],
+        emit(dict(common, part="main", step="make_graphed_train_step (one CUDA graph)",
+                  steps=steps, losses=main["losses"],
                   grad_norms=main["grad_norms"], step_seconds=main["seconds"],
                   median_step_seconds=med, median_of=steps - 1,
                   tokens_per_s=B * S / med, peak_memory_bytes=main["peak_memory_bytes"],
+                  peak_reserved_bytes=main["peak_reserved_bytes"],
                   launches=main["launches"], launches_per_step=per_step,
                   report=main["report"]))
         if not main["losses"][-1] < main["losses"][0]:
             raise AssertionError(f"train_families {name}: the loss did not fall: "
                                  f"{main['losses']}")
+        del main
+        gc.collect()
 
-        # where a step's time goes
-        split = _split(rec, steps)
-        emit(dict(common, part="split", **split, scan_oracle_share_of_backward=(
+        # where a step's time goes, in eager steps of the same cut
+        srun, rec = _family_split(spec, args, cfg, mods)
+        split = _split(rec, TRAIN_FAMILY_SPLIT_STEPS)
+        emit(dict(common, part="split", step="eager", steps=TRAIN_FAMILY_SPLIT_STEPS,
+                  eager_step_seconds=srun["seconds"], **split, scan_oracle_share_of_backward=(
             split["oracle_backward_ms_per_step"].get(scan, 0.0) / 1e3
             / split["backward_seconds"])))
 
@@ -3529,7 +3818,7 @@ def phase_train_families(cx):
         if tap["calls"] != _family_launches(cfg, "none")[scan]:
             raise AssertionError(f"train_families {name}: {tap['calls']} {scan} calls held "
                                  "to the plain version")
-        del main, rec
+        del srun, rec
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3538,7 +3827,8 @@ def phase_train_families(cx):
         ccfg = train.model_config(cargs)
         emit(dict(common, part="kernel_vs_chunked", d_model_checked=ccfg.d_model,
                   batch_checked=cargs.batch,
-                  **_family_check(ccfg, mode, cargs.batch, cargs.seq, cargs.lr)))
+                  **_family_check(ccfg, spec.get("check_remat", mode), cargs.batch,
+                                  cargs.seq, cargs.lr)))
         gc.collect()
         torch.cuda.empty_cache()
         emit(dict(common, part="seconds", seconds=round(time.perf_counter() - t0, 1)))

@@ -324,7 +324,9 @@ def _conv_make_step(workload: Dict, *, device: str = "cuda"):
 
         def f(ws, x, y):
             if point["remat"] != "none":
-                return checkpoint(inner, ws, x, y, use_reentrant=False)
+                # no random numbers to replay (and a capture refuses to read them)
+                return checkpoint(inner, ws, x, y, use_reentrant=False,
+                                  preserve_rng_state=False)
             return inner(ws, x, y)
 
         def loss_fn(ws):
@@ -418,7 +420,8 @@ class MeasuredEvaluator(Evaluator):
         self.workload = workload
         self.device = device
         self._wall = WallClockEvaluator(
-            measured_make_step(workload, device=device, **build), iters=iters)
+            measured_make_step(workload, device=device, **build), iters=iters,
+            name=workload["name"])
 
     def __call__(self, point: Dict, fidelity: Optional[float] = None):
         import torch

@@ -10,14 +10,16 @@ request has ``gen_len`` tokens, wave after wave.
 
 Runs on the card (``--device cuda``, the default) through the hand-written
 kernels (``runtime``: attention, RMSNorm and the scans), and raises when
-there is no card.  On the card every family decodes through the compiled
-step (``make_graphed_decode_step``: one CUDA graph a ``(batch,
+there is no card.  On the card every family prefills and decodes through
+the compiled steps, as the reference does through ``jax.jit``:
+``make_graphed_prefill_step`` (one CUDA graph a ``(batch, prompt_len,
+cache_len)``, captured at the second wave and replayed at every later
+one) and ``make_graphed_decode_step`` (one graph a ``(batch,
 cache_len)``, captured at the second token and replayed at every later
-one, as the reference decodes through ``jax.jit``); a capture that fails
-raises.  ``--device cpu`` is for tests: it takes the oracles and decodes
-eagerly.  The cache is allocated once and zeroed in place at the start of
-every wave, so each wave starts from a fresh cache's state at the
-addresses the graph holds.
+one); a capture that fails raises.  ``--device cpu`` is for tests: it
+takes the oracles and prefills and decodes eagerly.  The cache is
+allocated once and zeroed in place at the start of every wave, so each
+wave starts from a fresh cache's state at the addresses the graphs hold.
 An encoder-decoder model (whisper) gets zero ``encoder_embeds`` of
 ``encoder_seq_len`` frames, a VLM zero ``image_embeds``, as in the
 reference.
@@ -35,8 +37,8 @@ from repro_torch.models.model import build_model
 from repro_torch.models.params import split_params
 from repro_torch.models.runtime import Runtime
 from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
-                                          make_graphed_decode_step, make_prefill_step,
-                                          reset_cache)
+                                          make_graphed_decode_step, make_graphed_prefill_step,
+                                          make_prefill_step, reset_cache)
 
 
 def runtime(on_card: bool, dtype: str) -> Runtime:
@@ -109,7 +111,8 @@ def main(argv=None):
         for _ in range(args.requests)
     ]
 
-    prefill = make_prefill_step(model, rt, tuning_db=tuning_db)
+    prefill = (make_graphed_prefill_step if on_card else make_prefill_step)(
+        model, rt, tuning_db=tuning_db)
     decode = (make_graphed_decode_step if on_card else make_decode_step)(
         model, rt, tuning_db=tuning_db)
     cache_len = args.prompt_len + args.gen_len

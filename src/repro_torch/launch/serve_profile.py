@@ -1,5 +1,5 @@
-"""Where a served decode step's time goes on the GPU, eager and compiled
-(the PyTorch/CUDA port).
+"""Where a served prefill's and decode step's time goes on the GPU, eager
+and compiled (the PyTorch/CUDA port).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_profile \
         [--arch qwen2-0.5b] [--dtype bf16] [--batch 8] [--prompt-len 512] [--steps 16]
@@ -20,10 +20,17 @@ profiler, and the hand-written ones by their counters), the peak device bytes,
 the kernels and host operators that take the most time, and whether the
 paths' tokens and logits are equal.  For the compiled path the graph's
 span on the device (CUDA events around each replay) is reported too.
+The prefill is run the same way through both of its paths
+(``make_prefill_step`` and ``make_graphed_prefill_step``) from one zeroed
+cache (``prefill_paths``): seconds a prefill, busy time, idle share,
+launches and peak bytes, and whether the logits and every cache leaf are
+equal; for the compiled path also the first (eager) call's and the
+capturing call's seconds.
 Needs a card; there is no CPU mode.
 """
 import argparse
 import json
+import statistics
 import subprocess
 import time
 
@@ -36,9 +43,11 @@ from repro_torch.models.model import build_model
 from repro_torch.models.params import split_params, tree_leaves
 from repro_torch.models.runtime import Runtime
 from repro_torch.serve.serve_step import (greedy_sample, kernel_counters, make_decode_step,
-                                          make_graphed_decode_step, make_prefill_step)
+                                          make_graphed_decode_step, make_graphed_prefill_step,
+                                          make_prefill_step, reset_cache)
 
 PATHS = {"eager": make_decode_step, "graphed": make_graphed_decode_step}
+PREFILL_PATHS = {"eager": make_prefill_step, "graphed": make_graphed_prefill_step}
 
 
 def _dev_us(e):
@@ -150,6 +159,63 @@ def decode_paths(model, params, rt: Runtime, batch, steps: int, *, profile_steps
     return report, kept
 
 
+def prefill_paths(model, params, rt: Runtime, batch, cache_len: int, *, reps: int = 5,
+                  top: int = 12):
+    """Both prefill paths, each on a cache of its own zeroed before its
+    first call, on the card.  Returns ``(report, kept)``: ``report`` the
+    numbers described in the module docstring (seconds: the median of
+    ``reps`` prefills, each between two device synchronises), ``kept[path]``
+    the logits and cache leaves (clones) of a prefill from a zeroed cache,
+    for the compiled path one that replayed its graph."""
+    B, S = batch["tokens"].shape
+    dev = batch["tokens"].device
+    report = {"batch": B, "prompt_len": S, "cache_len": cache_len, "reps": reps, "paths": {}}
+    kept = {}
+    for name, make in PREFILL_PATHS.items():
+        prefill = make(model, rt)
+        cache, _ = split_params(model.init_cache(B, cache_len, device=dev))
+
+        def timed():
+            fresh = reset_cache(cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prefill(params, batch, fresh)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        # eager: a warm-up; compiled: the eager call, then the capture + a replay
+        (_, first_s), (_, second_s) = timed(), timed()
+        (logits, c), _ = timed()
+        kept[name] = (logits.clone(), [t.clone() for t in tree_leaves(c["layers"])])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counted = [k.launches for k in kernel_counters()]
+        secs = [timed()[1] for _ in range(reps)]
+        counted = {k.__name__: (k.launches - n) / reps
+                   for k, n in zip(kernel_counters(), counted)}
+        peak = int(torch.cuda.max_memory_allocated())
+        step_s = statistics.median(secs)
+        # the prefill alone: its work does not depend on what the cache holds
+        prof = _profile(lambda: [prefill(params, batch, {"pos": 0, "layers": cache["layers"]})
+                                 for _ in range(reps)], reps, top)
+        row = {"prefill_seconds": step_s, "prefill_seconds_each": secs,
+               "prefill_tokens_per_second": B * S / step_s,
+               "device_busy_seconds_per_prefill": prof["busy_s"],
+               "device_idle_share_of_prefill": 1.0 - prof["busy_s"] / step_s,
+               "device_launches_per_prefill": prof["launches"],
+               "kernel_launches_per_prefill": counted, "peak_memory_bytes": peak,
+               "top_device": prof["top_device"], "top_host": prof["top_host"]}
+        if name == "graphed":
+            row.update(first_call_seconds=first_s, capture_call_seconds=second_s)
+        report["paths"][name] = row
+        del prefill, cache, c, logits
+    (le, ce), (lg, cg) = kept["eager"], kept["graphed"]
+    report["logits_equal"] = bool(torch.equal(le, lg))
+    report["cache_leaves_equal"] = len(ce) == len(cg) and all(
+        torch.equal(a, b) for a, b in zip(ce, cg))
+    return report, kept
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b")
@@ -172,12 +238,14 @@ def main(argv=None):
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)).cuda()
     batch = {"tokens": toks, **frontend_inputs(cfg, args.batch, toks.device)}
+    prefill, _ = prefill_paths(model, params, rt, batch, args.prompt_len + args.steps + 1,
+                               top=args.top)
     report, _ = decode_paths(model, params, rt, batch, args.steps,
                              profile_steps=args.steps, top=args.top)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(json.dumps({"gpu": gpu, "arch": cfg.name, "dtype": args.dtype,
-                      "attn_impl": args.attn_impl, **report}))
+                      "attn_impl": args.attn_impl, "prefill": prefill, **report}))
 
 
 if __name__ == "__main__":

@@ -12,13 +12,19 @@ demonstrates recovery.
 
 Runs on the card (``--device cuda``, the default) through the hand-written
 kernels forward (``runtime``: RMSNorm, flash attention and the scans, each
-with its oracle's backward), and raises when there is no card.  ``--device cpu`` takes the oracles.  Beyond the flags of the
-reference package's script: ``--device`` and ``--remat``; ``--tuning-db``
-is live here (the kernels consult it), where the reference's oracles never
-read it.
+with its oracle's backward), and raises when there is no card.  On the
+card the step is one CUDA graph (``train_step.make_graphed_train_step``,
+as the reference jits it), the caching allocator takes expandable
+segments unless ``PYTORCH_CUDA_ALLOC_CONF`` says otherwise
+(``card_allocator``), and the report ends with the median step after
+the first and the run's peak device memory, allocated and reserved.  ``--device cpu`` takes the
+oracles, eagerly.  Beyond the flags of the reference package's script:
+``--device`` and ``--remat``; ``--tuning-db`` is live here (the kernels
+consult it), where the reference's oracles never read it.
 """
 import argparse
 import dataclasses
+import os
 
 import torch
 
@@ -28,6 +34,24 @@ from repro_torch.models.runtime import REMAT_MODES, Runtime
 from repro_torch.optim.optimizer import OptimizerConfig
 from repro_torch.runtime.fault_tolerance import FailureInjector
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+#: the caching allocator on the card.  The compiled step's graph keeps a
+#: memory pool of its own beside the segments the rest of the run holds,
+#: and with fixed-size segments both sides fragment: on the NVIDIA H100
+#: 80GB HBM3 (700 W), rwkv6-3b at its full 32 layers (f32, 2 x 2048) ran
+#: out of memory at the capture under every remat mode, though it
+#: allocates no more than its eager step; with expandable segments it
+#: trains at remat ``names`` in 67.22 GB allocated, 69.31 GB reserved
+#: (PERF.md, PR 24).
+CARD_ALLOCATOR = "expandable_segments:True"
+
+
+def card_allocator() -> None:
+    """``PYTORCH_CUDA_ALLOC_CONF`` set to ``CARD_ALLOCATOR`` unless the
+    caller set it.  The allocator reads it once, at CUDA's first use in
+    the process: call this before."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", CARD_ALLOCATOR)
 
 
 def runtime(on_card: bool, remat: str) -> Runtime:
@@ -88,6 +112,8 @@ def main(argv=None):
             "--device cuda (the default) needs an NVIDIA GPU and none is "
             "visible; pass --device cpu to run the oracles on the CPU")
     on_card = args.device == "cuda"
+    if on_card:
+        card_allocator()
     cfg = model_config(args)
 
     opt_cfg = OptimizerConfig(learning_rate=args.lr, warmup_steps=20,
@@ -110,8 +136,15 @@ def main(argv=None):
                       failure_injector=injector)
     log = trainer.run()
     first, last = log[0]["loss"], log[-1]["loss"]
+    tail = ""
+    if on_card:
+        later = sorted(m["seconds"] for m in log[1:])
+        if later:
+            tail = f"; median step after the first {later[len(later) // 2]:.5f} s"
+        tail += (f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+                 f"allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved")
     print(f"[train] done: loss {first:.4f} -> {last:.4f} "
-          f"({len(log)} logged steps); events: {trainer.events or 'none'}")
+          f"({len(log)} logged steps); events: {trainer.events or 'none'}{tail}")
     return log
 
 

@@ -84,11 +84,14 @@ _SAVED_OPS = {
 
 
 def _remat(fn, mode: str, *args):
-    """``fn(*args)`` under the remat policy ``mode`` (not ``none``)."""
+    """``fn(*args)`` under the remat policy ``mode`` (not ``none``).  The
+    forward draws no random numbers, so no generator state is kept for the
+    recompute (reading it is refused while a CUDA graph is captured)."""
     if mode == "full":
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
     ctx = functools.partial(create_selective_checkpoint_contexts, _SAVED_OPS[mode])
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx,
+                      preserve_rng_state=False)
 
 
 def _init_block(gen, cfg: ModelConfig, mixer_kind: str, mlp_kind: str) -> dict:
@@ -280,7 +283,10 @@ def forward(
         new_cache = {"pos": int(tokens.shape[1]), "layers": cache_layers}
         x = x[:, -1:]  # only last-position logits for prefill
     logits = _head(params, x, cfg, rt)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+    if isinstance(aux, torch.Tensor):
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+    else:  # a host number (no MoE layer): made on the device, no host copy to capture
+        aux = torch.full((), aux, dtype=torch.float32, device=logits.device)
     return logits, aux, new_cache
 
 

@@ -111,8 +111,9 @@ def adamw_update(
     grads, state: dict, params, cfg: OptimizerConfig, *, donate: bool = False
 ) -> Tuple[dict, dict, dict]:
     """Returns (new_params, new_state, metrics).  ``donate=True`` updates
-    ``params`` and ``state`` in place and returns them."""
-    count = state["count"] + 1
+    ``params`` and ``state`` in place and returns them, the step count
+    included (a CUDA graph of the step replays the count it holds)."""
+    count = state["count"].add_(1) if donate else state["count"] + 1
     lr = lr_schedule(cfg, count)
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)

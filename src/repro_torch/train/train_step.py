@@ -11,9 +11,15 @@ The forward runs the hand-written kernels where the runtime selects them
 (``attn_impl="cuda"``); each kernel's backward recomputes through its
 oracle (``kernels/ops.py``, ``_RefVJP``), as the reference pairs its Pallas
 forwards with an oracle backward.
+
+``make_graphed_train_step`` is the trainer's step on the card, the
+counterpart of the reference's ``jax.jit(step_fn, donate_argnums=(0, 1))``:
+forward, backward and the donated AdamW update captured once into a CUDA
+graph and replayed a step.
 """
 from __future__ import annotations
 
+import gc
 from typing import Dict
 
 import torch
@@ -26,6 +32,7 @@ from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim.optimizer import OptimizerConfig, adamw_update
 from repro_torch.runtime import trace_hooks
+from repro_torch.runtime.graphs import GraphedStep, tensors
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -170,3 +177,54 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, rt: Runtime,
         return params, opt_state, metrics
 
     return train_step
+
+
+class GraphedTrainStep(GraphedStep):
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``, as a
+    donated ``make_train_step`` step; see ``make_graphed_train_step``."""
+
+    def __init__(self, step, name: str):
+        super().__init__(name, "train step")
+        self.train_step = step
+
+    def __call__(self, params, opt_state, batch: Dict[str, torch.Tensor]):
+        if self.binding is None and any(isinstance(t, DTensor)
+                                        for t in tensors((params, opt_state, batch))):
+            raise TypeError(f"{self.name}: a step placed on a mesh runs eagerly "
+                            "(make_train_step); the compiled step takes one card's tensors")
+        if self.warm and self.graph is None:
+            # this call captures: free what the eager step left (autograd's
+            # reference cycles can hold its tensors beside the graph's pool)
+            gc.collect()
+            torch.cuda.empty_cache()
+        metrics = self.run({"parameter set": params, "optimizer state": opt_state},
+                           {"batch": batch},
+                           lambda: self.train_step(params, opt_state, batch)[2],
+                           lambda inputs: self.train_step(params, opt_state, inputs["batch"])[2])
+        return params, opt_state, metrics
+
+
+def make_graphed_train_step(model: Model, opt_cfg: OptimizerConfig, rt: Runtime,
+                            microbatches: int = 1, *, tuning_db=None):
+    """The compiled train step (the reference's ``jax.jit(step_fn,
+    donate_argnums=(0, 1))``): ``make_train_step(..., donate=True)``'s
+    signature and results, on the card only.
+
+    * It is bound, at its first call, to one parameter set and one AdamW
+      state (their leaves' addresses, shapes and dtypes) and to the
+      batch's shapes; a call with another raises (``Binding``): a trainer
+      that restores a checkpoint into new trees builds a new step.
+    * The first call runs eagerly and is a real step; the second captures
+      forward, backward (the oracle recomputes included) and the donated
+      update, the microbatch loop unrolled, and replays; every later call
+      copies the batch into the graph's inputs and replays.
+    * Params and AdamW state are updated in place at the addresses the
+      graph holds, the step count too (``adamw_update``), so the learning
+      rate and bias corrections advance a replay.  The metrics are the
+      graph's static outputs, overwritten by the next replay.
+    * A replay adds its kernel launches to the wrappers' counters.  CPU
+      tensors and a step placed on a mesh raise; a capture that fails
+      raises with the model's name."""
+    step = make_train_step(model, opt_cfg, rt, microbatches, tuning_db=tuning_db,
+                           donate=True)
+    return GraphedTrainStep(step, model.cfg.name)

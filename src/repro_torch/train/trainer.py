@@ -10,7 +10,12 @@ A step's ``seconds`` is its real time on the device: the device is
 synchronised before the clock is read at either end (the reference times
 an asynchronous dispatch).  The trainer owns its params and optimizer
 state, and its step updates them in place (``donate=True``), as the
-reference's jitted step donates them.
+reference's jitted step donates them.  On the card the step is one CUDA
+graph (``make_graphed_train_step``: the first step eager, the second
+captured, every later one a replay), as the reference jits it; after a
+restore the trainer releases that graph and its memory pool, then builds
+and captures the step again, as the reference re-jits.  The CPU step is
+eager.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from repro_torch.runtime.fault_tolerance import (
     StragglerDetector,
     WorkerFailure,
 )
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import make_graphed_train_step, make_train_step
 
 
 @dataclass
@@ -80,9 +85,16 @@ class Trainer:
 
     def _build_step(self):
         # re-reads the runtime's TuningDB, if it has one
-        self._step_fn = make_train_step(self.model, self.opt_cfg, self.rt,
-                                        microbatches=self.tcfg.microbatches,
-                                        tuning_db=self.rt.tuning_db, donate=True)
+        old = getattr(self, "_step_fn", None)
+        if hasattr(old, "release"):  # the graph's pool, before another is captured
+            self._step_fn = None
+            old.release()
+        make, kw = make_train_step, {"donate": True}
+        if self.device.type == "cuda":
+            make, kw = make_graphed_train_step, {}
+        self._step_fn = make(self.model, self.opt_cfg, self.rt,
+                             microbatches=self.tcfg.microbatches,
+                             tuning_db=self.rt.tuning_db, **kw)
 
     def _sync(self):
         if self.device.type == "cuda":

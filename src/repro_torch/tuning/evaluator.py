@@ -30,7 +30,9 @@ PyTorch runs eagerly and a CUDA launch returns before the card has done
 the work, so every place where the reference package waits for a result
 (``jax.block_until_ready``) synchronises the step's device here
 (``torch.cuda.synchronize``); without it a CUDA step would time only its
-launch.
+launch.  The reference times its step compiled (``jax.jit(step)``), so on
+the card ``WallClockEvaluator`` times replays of one CUDA graph of the
+step (``runtime.graphs.GraphedStep``), not the eager step's dispatch.
 """
 from __future__ import annotations
 
@@ -207,6 +209,18 @@ class WallClockEvaluator(Evaluator):
     charging the build to the configuration would mislead cost-aware
     (EI-per-second) acquisition.  The one-time overhead is reported
     separately as ``meta["build_seconds"]``.
+
+    Compilation: where the step's arguments lie on the card, the step is
+    compiled as the reference's ``jax.jit(step)`` compiles it: the
+    ``warmup`` calls (at least one) run eagerly on the capture's stream,
+    then ``step(*args)`` is captured into one CUDA graph and replayed once
+    (``GraphedStep``; ``build_seconds`` includes the capture and that
+    replay), and both timing loops time replays, each ended by a
+    synchronise.  The graph is bound to ``args`` once a point; the timed
+    replays check nothing.  The graph and its memory pool are released
+    before the call returns.  A capture that fails raises with ``name``;
+    an out-of-memory error keeps its type.  On the CPU the step runs
+    eagerly.
     """
 
     supports_fidelity = True
@@ -221,8 +235,10 @@ class WallClockEvaluator(Evaluator):
         rel_halfwidth: float = 0.05,
         min_iters: Optional[int] = None,
         max_iters: Optional[int] = None,
+        name: str = "step",
     ):
         self.make_step = make_step
+        self.name = name
         self.warmup = warmup
         self.iters = iters
         self.adaptive = adaptive
@@ -266,12 +282,26 @@ class WallClockEvaluator(Evaluator):
         f = 1.0 if fidelity is None else max(min(float(fidelity), 1.0), 1e-3)
         t_build0 = time.perf_counter()
         step, args, examples = self.make_step(point)
-        out = None
-        for _ in range(self.warmup):
-            out = step(*args)
-        _wait(out, args)
-        build_seconds = time.perf_counter() - t_build0
-        times = self._measure(step, args, f)
+        graph = out = None
+        try:
+            if _cuda_devices(args, set()):
+                from repro_torch.runtime.graphs import GraphedStep
+
+                graph = GraphedStep(self.name, "measured step", warmup=self.warmup)
+                measured = step
+                run = lambda inputs=None: measured(*args)  # noqa: E731
+                for _ in range(graph.warmup + 1):  # eager, then capture and a replay
+                    out = graph.run({"arguments": args}, {}, run, run)
+                step = lambda *_: graph.replay({})  # noqa: E731
+            else:
+                for _ in range(self.warmup):
+                    out = step(*args)
+            _wait(out, args)
+            build_seconds = time.perf_counter() - t_build0
+            times = self._measure(step, args, f)
+        finally:
+            if graph is not None:
+                graph.release()
         n = len(times)
         dt = sum(times) / n
         mean = dt

@@ -399,7 +399,7 @@ class KernelTuneEvaluator(Evaluator):
 
         self._wall = WallClockEvaluator(
             self._make_step, warmup=warmup, iters=iters, adaptive=adaptive,
-            rel_halfwidth=rel_halfwidth)
+            rel_halfwidth=rel_halfwidth, name=kernel)
 
     def _make_step(self, point: Dict):
         return self.spec.build(self.shape, point, self.device)

@@ -365,7 +365,7 @@ class _WorkerConn:
         self.heartbeat_timeout = heartbeat_timeout
         self.inflight: Dict[int, _RemoteTask] = {}
         self.alive = True
-        self.last_seen = time.time()
+        self.last_seen = time.monotonic()
         self.pid = pid
         self.hostname = hostname
         self.protocol = protocol  # negotiated wire version for this session
@@ -426,7 +426,7 @@ class RemoteWorkerPool:
         self.losers_discarded = 0   # late duplicate results dropped
         self.rejected_joins = 0     # joiners refused (strict mismatch, ...)
         self.clean_leaves = 0       # workers that deregistered cleanly
-        deadline = time.time() + connect_timeout
+        deadline = time.monotonic() + connect_timeout
         for addr in addresses:
             self._admit(self._connect(addr, deadline), initial=True)
         # the join socket is open for the WHOLE run — that is what makes
@@ -467,7 +467,7 @@ class RemoteWorkerPool:
             try:
                 sock = socket.create_connection((host, port), timeout=2.0)
             except OSError as e:
-                if time.time() >= deadline:
+                if time.monotonic() >= deadline:
                     raise ConnectionError(
                         f"cannot reach measurement worker {address}: {e!r} "
                         "(is `launch/worker.py` / --serve-worker running "
@@ -640,7 +640,7 @@ class RemoteWorkerPool:
 
     def fleet_health(self) -> List[dict]:
         """Per-worker snapshot (the service's ``job_status`` fleet view)."""
-        now = time.time()
+        now = time.monotonic()
         with self._lock:
             rows = []
             for w in self._workers:
@@ -806,7 +806,7 @@ class RemoteWorkerPool:
                     return
                 task, worker = picked
                 worker.inflight[task.id] = task
-                task.holders[worker] = time.time()
+                task.holders[worker] = time.monotonic()
             # future-state transition and the send happen outside the
             # lock: sendall can block and cancel() takes the future lock
             if task.future.done() or (
@@ -832,7 +832,7 @@ class RemoteWorkerPool:
                     self._on_result(worker, msg)
                 elif kind == "heartbeat":
                     with self._lock:
-                        worker.last_seen = time.time()
+                        worker.last_seen = time.monotonic()
                 elif kind == "leaving":
                     # clean deregistration: stop dispatching, let the
                     # in-flight measurements finish, then end the session
@@ -851,7 +851,7 @@ class RemoteWorkerPool:
         self._on_worker_down(worker)
 
     def _on_result(self, worker: _WorkerConn, msg: dict) -> None:
-        now = time.time()
+        now = time.monotonic()
         with self._wake:
             worker.last_seen = now
             task = worker.inflight.pop(msg["id"], None)
@@ -924,7 +924,7 @@ class RemoteWorkerPool:
             # faster heartbeat than the startup fleet
             interval = min(timeouts, default=1.0) / 4.0
             time.sleep(min(max(interval, 0.05), 1.0))
-            now = time.time()
+            now = time.monotonic()
             with self._lock:
                 workers = list(self._workers)
             for w in workers:

@@ -294,10 +294,13 @@ def test_traces_in_threads_do_not_mix_on_a_mesh():
 #: anything on a mesh (the record's memory, cost and roofline terms), but
 #: for the prefill's ring-buffer fill: a cache the prompt fills exactly is
 #: now written as a slice, with no slot index built (4 ops and 5,120 raw
-#: bytes fewer; its memory, adjusted bytes and roofline as before)
+#: bytes fewer; its memory, adjusted bytes and roofline as before); and
+#: for the dense forward's aux loss, now written on the device by a fill
+#: where it was a host copy, which a CUDA graph cannot capture (one op and
+#: 4 raw bytes a forward: two in the train step's two microbatches)
 ONE_CARD = json.loads("""
-{"train": {"memory": {"argument_B": 1090308, "temp_B": 1053212, "output_B": 1088288, "alias_B": 0, "per_device_B": 3231808.0}, "cost": {"flops_per_device": 201326592.0, "bytes_hlo_raw": 109217472.0, "bytes_traffic_included": 60955712.0, "bytes_traffic_kernel_excluded": 48261760.0, "bytes_kernel_credit": 1048576.0, "bytes_traffic_adjusted": 62004288.0, "bytes_adjusted": 9949440.0, "scan_body_flops_once": 201326592.0, "n_periods": 2, "ops": 3935, "analysis": "full"}, "roofline": {"compute_s": 2.0356581597573307e-07, "memory_s": 2.969982089552239e-06, "collective_s": 0.0, "est_step_s": 2.969982089552239e-06, "bottleneck": "memory"}},
- "prefill": {"memory": {"argument_B": 429312, "temp_B": 781056, "output_B": 67584, "alias_B": 65536, "per_device_B": 1212416.0}, "cost": {"flops_per_device": 46268416.0, "bytes_hlo_raw": 22122224.0, "bytes_traffic_included": 9388688.0, "bytes_traffic_kernel_excluded": 12733536.0, "bytes_kernel_credit": 262144.0, "bytes_traffic_adjusted": 9650832.0, "bytes_adjusted": 1747200.0, "scan_body_flops_once": 46268416.0, "n_periods": 2, "ops": 510, "analysis": "full"}, "roofline": {"compute_s": 4.678302932254803e-08, "memory_s": 5.215522388059701e-07, "collective_s": 0.0, "est_step_s": 5.215522388059701e-07, "bottleneck": "memory"}},
+{"train": {"memory": {"argument_B": 1090308, "temp_B": 1053220, "output_B": 1088288, "alias_B": 0, "per_device_B": 3231816.0}, "cost": {"flops_per_device": 201326592.0, "bytes_hlo_raw": 109217480.0, "bytes_traffic_included": 60955720.0, "bytes_traffic_kernel_excluded": 48261760.0, "bytes_kernel_credit": 1048576.0, "bytes_traffic_adjusted": 62004296.0, "bytes_adjusted": 9949440.0, "scan_body_flops_once": 201326592.0, "n_periods": 2, "ops": 3937, "analysis": "full"}, "roofline": {"compute_s": 2.0356581597573307e-07, "memory_s": 2.969982089552239e-06, "collective_s": 0.0, "est_step_s": 2.969982089552239e-06, "bottleneck": "memory"}},
+ "prefill": {"memory": {"argument_B": 429312, "temp_B": 781056, "output_B": 67584, "alias_B": 65536, "per_device_B": 1212416.0}, "cost": {"flops_per_device": 46268416.0, "bytes_hlo_raw": 22122228.0, "bytes_traffic_included": 9388692.0, "bytes_traffic_kernel_excluded": 12733536.0, "bytes_kernel_credit": 262144.0, "bytes_traffic_adjusted": 9650836.0, "bytes_adjusted": 1747200.0, "scan_body_flops_once": 46268416.0, "n_periods": 2, "ops": 511, "analysis": "full"}, "roofline": {"compute_s": 4.678302932254803e-08, "memory_s": 5.215522388059701e-07, "collective_s": 0.0, "est_step_s": 5.215522388059701e-07, "bottleneck": "memory"}},
  "decode": {"memory": {"argument_B": 428304, "temp_B": 100112, "output_B": 67584, "alias_B": 65536, "per_device_B": 530464.0}, "cost": {"flops_per_device": 851968.0, "bytes_hlo_raw": 1685072.0, "bytes_traffic_included": 944320.0, "bytes_traffic_kernel_excluded": 740752.0, "bytes_kernel_credit": 67584.0, "bytes_traffic_adjusted": 1011904.0, "bytes_adjusted": 455936.0, "scan_body_flops_once": 851968.0, "n_periods": 2, "ops": 373, "analysis": "full"}, "roofline": {"compute_s": 8.614438827098079e-10, "memory_s": 1.3610029850746268e-07, "collective_s": 0.0, "est_step_s": 1.3610029850746268e-07, "bottleneck": "memory"}}}
 """)
 
