@@ -23,8 +23,12 @@ wave starts from a fresh cache's state at the addresses the graphs hold.
 An encoder-decoder model (whisper) gets zero ``encoder_embeds`` of
 ``encoder_seq_len`` frames, a VLM zero ``image_embeds``, as in the
 reference.
-Beyond the flags of the reference package's script: ``--device``, ``--dtype`` and
-``--no-reduced`` (the reference's ``--reduced`` cannot be switched off).
+Beyond the flags of the reference package's script: ``--device``, ``--dtype``,
+``--no-reduced`` (the reference's ``--reduced`` cannot be switched off) and
+``--trace``: the program's spans on (``runtime/trace_hooks.py``; the wave
+loop's ``wave.admit``, ``wave.prefill``, ``wave.decode`` and
+``wave.readback`` around the steps' own), and one ``[trace]`` line a span
+after the ``[serve]`` line.
 """
 import argparse
 import time
@@ -36,6 +40,7 @@ from repro_torch.configs import get_config
 from repro_torch.models.model import build_model
 from repro_torch.models.params import split_params
 from repro_torch.models.runtime import Runtime
+from repro_torch.runtime import trace_hooks
 from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
                                           make_graphed_decode_step, make_graphed_prefill_step,
                                           make_prefill_step, reset_cache)
@@ -79,6 +84,8 @@ def main(argv=None):
     ap.add_argument("--tuning-db", default=None, metavar="PATH",
                     help="persisted TuningDB; tuned kernel tiles are picked "
                          "up when the steps are built")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the program's spans and print one [trace] line a span")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -122,35 +129,50 @@ def main(argv=None):
         if on_card:
             torch.cuda.synchronize(device)
 
-    sync()
-    done, t0, tokens_out = [], time.perf_counter(), 0
-    queue = list(enumerate(prompts))
-    while queue:
-        wave = queue[: args.batch]
-        queue = queue[args.batch:]
-        B = args.batch
-        toks = np.zeros((B, args.prompt_len), np.int32)
-        for i, (_, p) in enumerate(wave):  # left-pad to a packed batch
-            toks[i, args.prompt_len - len(p):] = p
-        batch = {"tokens": torch.from_numpy(toks).to(device),
-                 **frontend_inputs(cfg, B, device)}
-        cache = reset_cache(cache)
-        logits, cache = prefill(params, batch, cache)
-        tok = greedy_sample(logits)
-        outs = [tok]
-        for _ in range(args.gen_len - 1):
-            logits, cache = decode(params, tok, cache)
-            tok = greedy_sample(logits)
-            outs.append(tok)
-        gen_toks = torch.cat(outs, dim=1).cpu().numpy()  # waits for the device
-        tokens_out += int(gen_toks.size)
-        for i, (rid, _) in enumerate(wave):
-            done.append((rid, gen_toks[i]))
+    if args.trace:
+        trace_hooks.reset()
+        trace_hooks.tracing(True)
+    try:
+        span = lambda name: trace_hooks.span(name, card=on_card)  # noqa: E731
+        sync()
+        done, t0, tokens_out = [], time.perf_counter(), 0
+        queue = list(enumerate(prompts))
+        while queue:
+            wave = queue[: args.batch]
+            queue = queue[args.batch:]
+            B = args.batch
+            with span("wave.admit"):
+                toks = np.zeros((B, args.prompt_len), np.int32)
+                for i, (_, p) in enumerate(wave):  # left-pad to a packed batch
+                    toks[i, args.prompt_len - len(p):] = p
+                batch = {"tokens": torch.from_numpy(toks).to(device),
+                         **frontend_inputs(cfg, B, device)}
+                cache = reset_cache(cache)
+            with span("wave.prefill"):
+                logits, cache = prefill(params, batch, cache)
+                tok = greedy_sample(logits)
+            outs = [tok]
+            with span("wave.decode"):
+                for _ in range(args.gen_len - 1):
+                    logits, cache = decode(params, tok, cache)
+                    tok = greedy_sample(logits)
+                    outs.append(tok)
+            with span("wave.readback"):
+                gen_toks = torch.cat(outs, dim=1).cpu().numpy()  # waits for the device
+            tokens_out += int(gen_toks.size)
+            for i, (rid, _) in enumerate(wave):
+                done.append((rid, gen_toks[i]))
 
-    sync()
+        sync()
+    finally:
+        if args.trace:
+            trace_hooks.tracing(False)
     dt = time.perf_counter() - t0
     print(f"[serve] {len(done)} requests, {tokens_out} tokens in {dt:.2f}s "
           f"=> {tokens_out/dt:.1f} tok/s (greedy, batch={args.batch})")
+    if args.trace:
+        for line in trace_hooks.summary():
+            print(line)
     return done
 
 

@@ -19,8 +19,12 @@ segments unless ``PYTORCH_CUDA_ALLOC_CONF`` says otherwise
 (``card_allocator``), and the report ends with the median step after
 the first and the run's peak device memory, allocated and reserved.  ``--device cpu`` takes the
 oracles, eagerly.  Beyond the flags of the reference package's script:
-``--device`` and ``--remat``; ``--tuning-db`` is live here (the kernels
-consult it), where the reference's oracles never read it.
+``--device``, ``--remat`` and ``--trace`` (the program's spans on,
+``runtime/trace_hooks.py``: the compiled step's ``train.step`` and the
+phases ``train.forward``, ``train.backward`` and ``train.optimizer``, one
+``[trace]`` line a span after the ``[train]`` line); ``--tuning-db`` is
+live here (the kernels consult it), where the reference's oracles never
+read it.
 """
 import argparse
 import dataclasses
@@ -32,6 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models.runtime import REMAT_MODES, Runtime
 from repro_torch.optim.optimizer import OptimizerConfig
+from repro_torch.runtime import trace_hooks
 from repro_torch.runtime.fault_tolerance import FailureInjector
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -83,6 +88,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--remat", choices=REMAT_MODES, default="none",
                     help="activation recompute policy of each layer period")
+    ap.add_argument("--trace", action="store_true",
+                    help="record the program's spans and print one [trace] line a span")
     return ap.parse_args(argv)
 
 
@@ -134,7 +141,14 @@ def main(argv=None):
     trainer = Trainer(cfg, opt_cfg, data_cfg, tcfg,
                       rt=rt,
                       failure_injector=injector)
-    log = trainer.run()
+    if args.trace:
+        trace_hooks.reset()
+        trace_hooks.tracing(True)
+    try:
+        log = trainer.run()
+    finally:
+        if args.trace:
+            trace_hooks.tracing(False)
     first, last = log[0]["loss"], log[-1]["loss"]
     tail = ""
     if on_card:
@@ -145,6 +159,9 @@ def main(argv=None):
                  f"allocated, {torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved")
     print(f"[train] done: loss {first:.4f} -> {last:.4f} "
           f"({len(log)} logged steps); events: {trainer.events or 'none'}{tail}")
+    if args.trace:
+        for line in trace_hooks.summary():
+            print(line)
     return log
 
 

@@ -16,6 +16,14 @@ and replays it.
   other leaves raises: a graph replays the addresses it captured.
 * ``CountedGraph`` keeps the kernels' launch counters true: a replay runs
   no Python, so it adds the launches that the capture recorded.
+* Every compiled call of the program's steps is a span
+  (``runtime/trace_hooks.py``; ``SPANS`` names it by the step's
+  ``what``), with its binding check a span inside it, its device time
+  taken around the replay, and its calls counted by kind (eager, capture,
+  replay).  Spans inside the captured region (a train step's phases) are
+  timed by events captured into the graph, read after each traced
+  replay.  The tuner's measured step is no span: its time is its
+  objective, and no reader of the program's spans would take it.
 
 Only CUDA tensors are captured: every compiled step refuses CPU tensors,
 and nothing falls back to the eager step.  A capture that fails raises
@@ -24,10 +32,13 @@ with the step's name; an out-of-memory error keeps its own type.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 from typing import Callable, Dict, Optional
 
 import torch
+
+from repro_torch.runtime import trace_hooks
 
 
 def kernel_counters() -> list:
@@ -241,6 +252,34 @@ def _zeros_like(tree):
     return torch.zeros_like(tree) if isinstance(tree, torch.Tensor) else tree
 
 
+#: the span of a compiled step's whole call, by the step's ``what`` (a
+#: step not named here, the tuner's measured step, is no span)
+SPANS = {"decode step": "serve.decode", "prefill step": "serve.prefill",
+         "train step": "train.step"}
+
+
+def whole_call(method):
+    """``method`` of a ``GraphedStep`` as the step's whole call: one span
+    (``SPANS``) over it, unless a call of the same step is already open.
+    Off, or for a step that is no span, the call runs with ``_call`` None."""
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        if self._call is not None or self.span is None:
+            return method(self, *args, **kwargs)
+        sp = trace_hooks.span(self.span)
+        if not sp.on:
+            return method(self, *args, **kwargs)
+        with sp:
+            self._call = sp
+            try:
+                return method(self, *args, **kwargs)
+            finally:
+                self._call = None
+
+    return call
+
+
 class GraphedStep:
     """A step under the protocol, whole.  ``run(held, copied, eager,
     region)``:
@@ -258,13 +297,28 @@ class GraphedStep:
       replays, and returns the region's result: the graph's static
       outputs, which the next replay overwrites.
 
-    ``release`` drops the graph, its inputs and outputs and its pool."""
+    ``release`` drops the graph, its inputs and outputs and its pool.
+
+    Traced (``trace_hooks.span``): each call (``run``, ``replay`` and a
+    subclass's ``__call__``) of a step named in ``SPANS`` is the span
+    ``SPANS[what]``; the binding check
+    is ``<span>.bind`` inside it; the call's device time is taken by events
+    around the eager step or the replay on the caller's stream; the calls
+    are counted by kind (``trace_hooks.CALL_KINDS``).  The spans the
+    region enters while it is captured are timed by events in the graph:
+    after a traced replay each becomes a record (``_pending``) whose times
+    are read before the graph replays again."""
 
     def __init__(self, name: str, what: str, *, warmup: int = 1):
         self.name, self.what, self.warmup = name, what, max(1, warmup)
         self.binding: Optional[Binding] = None
         self.steps: Optional[StepGraph] = None
+        self.device: Optional[torch.device] = None
         self._inputs = self._out = None
+        self.span = SPANS.get(what)
+        self._call = None  # the open whole call's span, while tracing is on
+        self._phases: list = []  # (name, start, end): events captured into the graph
+        self._pending: list = []  # the last traced replay's phase records
 
     @property
     def graph(self) -> Optional[CountedGraph]:
@@ -273,42 +327,81 @@ class GraphedStep:
     def new_binding(self, held: Dict, copied: Dict) -> Binding:
         return Binding(self.name, self.what, held, copied)
 
+    @whole_call
     def run(self, held: Dict, copied: Dict, eager: Callable, region: Callable):
         self.bind(held, copied)
         return self.step(copied, eager, region)
 
     def bind(self, held: Dict, copied: Dict) -> None:
         """The first call's binding, or a later call's check against it."""
-        if self.binding is None:
-            device = require_card(self.name, self.what, (held, copied))
-            self.binding = self.new_binding(held, copied)
-            self.steps = StepGraph(self.name, self.what, device)
-        else:  # the base check: a subclass's own ``check`` takes the step's arguments
-            Binding.check(self.binding, held, copied)
+        on = self._call is not None  # the binding check is a span inside an open call's
+        with trace_hooks.span(self.span + ".bind") if on else trace_hooks.OFF:
+            if self.binding is None:
+                self.device = require_card(self.name, self.what, (held, copied))
+                self.binding = self.new_binding(held, copied)
+                self.steps = StepGraph(self.name, self.what, self.device)
+            else:  # the base check: a subclass's own ``check`` takes the step's arguments
+                Binding.check(self.binding, held, copied)
 
     @property
     def warm(self) -> bool:
         """Whether the next call replays."""
         return self.steps is not None and self.steps.eagers >= self.warmup
 
+    @property
+    def on_card(self) -> bool:
+        return self.device is not None and self.device.type == "cuda"
+
     def step(self, copied: Dict, eager: Callable, region: Callable):
         """``run`` after ``bind``."""
+        sp = self._call or trace_hooks.OFF
         if not self.warm:
-            return self.steps.eager(eager)
+            sp.count("eager")
+            with sp.timed(self.on_card):
+                return self.steps.eager(eager)
         if self.graph is None:
+            sp.count("capture")
             self._inputs = _zeros_like(copied)
-            self._out = self.steps.capture(lambda: region(self._inputs))
-        return self.replay(copied)
+            phases = [] if self.span else None  # None: the region's spans are off
+            with trace_hooks.collecting(phases):
+                self._out = self.steps.capture(lambda: region(self._inputs))
+            self._phases = phases or []
+        else:
+            sp.count("replay")
+        return self._replay(copied)
 
+    @whole_call
     def replay(self, copied: Dict):
         """Copies ``copied`` into the graph's inputs and replays (no
         binding check: a caller that replays over fixed arguments)."""
+        if self._call is not None:
+            self._call.count("replay")
+        return self._replay(copied)
+
+    def _replay(self, copied: Dict):
         for dst, src in zip(tensors(self._inputs), tensors(copied)):
             dst.copy_(src)
-        self.steps.replay()
+        self._settle()
+        sp = self._call
+        if sp is None:
+            self.steps.replay()
+            return self._out
+        with sp.timed(self.on_card):
+            self.steps.replay()
+        if self._phases:
+            self._pending = sp.replayed(self._phases)
         return self._out
 
+    def _settle(self):
+        """The last traced replay's phase times, read before the graph's
+        events are recorded again."""
+        if self._pending:
+            trace_hooks.settle(self._pending)
+            self._pending = []
+
     def release(self):
+        self._settle()
         self._inputs = self._out = None
+        self._phases = []
         if self.steps is not None:
             self.steps.release()

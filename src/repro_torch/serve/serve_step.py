@@ -8,7 +8,8 @@ counterparts of the reference's ``jax.jit(prefill)`` and
 ``jax.jit(decode_step, donate_argnums=(2,))``: each step is captured once
 into a CUDA graph and replayed, over the caller's cache, filled and
 updated in place at fixed addresses (the decode step's position is held
-on the device).
+on the device).  Each call of either kind is the span ``serve.prefill``
+or ``serve.decode`` (``runtime/trace_hooks.py``).
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ from repro_torch.kernels.ops import with_db
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_leaves
 from repro_torch.models.runtime import Runtime
+from repro_torch.runtime import trace_hooks
 from repro_torch.runtime.graphs import (Binding, CountedGraph, GraphedStep,  # noqa: F401
-                                        kernel_counters)
+                                        kernel_counters, whole_call)
 
 
 def make_prefill_step(model: Model, rt: Runtime, *, tuning_db=None):
@@ -29,9 +31,10 @@ def make_prefill_step(model: Model, rt: Runtime, *, tuning_db=None):
 
     @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor], cache):
-        logits, _, new_cache = model.apply(
-            params, batch, rt=rt, mode="prefill", cache=cache
-        )
+        with trace_hooks.span("serve.prefill", card=batch["tokens"].is_cuda):
+            logits, _, new_cache = model.apply(
+                params, batch, rt=rt, mode="prefill", cache=cache
+            )
         return logits, new_cache
 
     return prefill_step
@@ -42,7 +45,8 @@ def make_decode_step(model: Model, rt: Runtime, *, tuning_db=None):
 
     @torch.no_grad()
     def decode_step(params, tokens: torch.Tensor, cache):
-        return model.decode_step(params, tokens, cache, rt=rt)
+        with trace_hooks.span("serve.decode", card=tokens.is_cuda):
+            return model.decode_step(params, tokens, cache, rt=rt)
 
     return decode_step
 
@@ -90,6 +94,7 @@ class GraphedDecodeStep(GraphedStep):
         return DecodeBinding(self.model, held["parameter set"], copied["tokens"],
                              {"layers": held["cache"]})
 
+    @whole_call
     @torch.no_grad()
     def __call__(self, params, tokens: torch.Tensor, cache):
         pos = cache["pos"]
@@ -155,6 +160,7 @@ class GraphedPrefillStep(GraphedStep):
         super().__init__(model.cfg.name, "prefill step")
         self.model, self.rt = model, rt
 
+    @whole_call
     @torch.no_grad()
     def __call__(self, params, batch: Dict[str, torch.Tensor], cache):
         layers = cache["layers"]

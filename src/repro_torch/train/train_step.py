@@ -16,6 +16,12 @@ forwards with an oracle backward.
 counterpart of the reference's ``jax.jit(step_fn, donate_argnums=(0, 1))``:
 forward, backward and the donated AdamW update captured once into a CUDA
 graph and replayed a step.
+
+A step's phases are spans (``runtime/trace_hooks.py``): ``train.forward``
+(the loss), ``train.backward`` (``autograd.grad``) and ``train.optimizer``
+(``adamw_update``), one record a phase a step, summed over the
+microbatches.  Captured into a graph, each is a pair of timing events that
+the compiled step reads after a traced replay.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim.optimizer import OptimizerConfig, adamw_update
 from repro_torch.runtime import trace_hooks
-from repro_torch.runtime.graphs import GraphedStep, tensors
+from repro_torch.runtime.graphs import GraphedStep, tensors, whole_call
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -129,12 +135,19 @@ def _split_placed(x: DTensor, k: int) -> DTensor:
                               run_check=False)
 
 
+def _on_card(batch) -> bool:
+    return any(t.is_cuda for t in batch.values())
+
+
 def value_and_grad(loss_fn, params, batch):
     """``((loss, metrics), grads)`` of ``loss_fn(params, batch)``, grads a
     tree like ``params``; the metrics are detached."""
+    card = _on_card(batch)
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, metrics = loss_fn(live, batch)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    with trace_hooks.span("train.forward", card=card):
+        loss, metrics = loss_fn(live, batch)
+    with trace_hooks.span("train.backward", card=card):
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
     grads = tree_map(lambda _: next(grads), live)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
 
@@ -154,6 +167,10 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, rt: Runtime,
     loss_fn = make_loss_fn(model, rt)
 
     def train_step(params, opt_state, batch):
+        with trace_hooks.merged():
+            return phases(params, opt_state, batch)
+
+    def phases(params, opt_state, batch):
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -171,8 +188,9 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, rt: Runtime,
             metrics = {k: torch.stack([o[1][k] for o in outs]).mean()
                        for k in outs[0][1]}
 
-        params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
-                                                      opt_cfg, donate=donate)
+        with trace_hooks.span("train.optimizer", card=_on_card(batch)):
+            params, opt_state, opt_metrics = adamw_update(grads, opt_state, params,
+                                                          opt_cfg, donate=donate)
         metrics = dict(metrics, **opt_metrics, loss_out=loss)
         return params, opt_state, metrics
 
@@ -187,6 +205,7 @@ class GraphedTrainStep(GraphedStep):
         super().__init__(name, "train step")
         self.train_step = step
 
+    @whole_call
     def __call__(self, params, opt_state, batch: Dict[str, torch.Tensor]):
         if self.binding is None and any(isinstance(t, DTensor)
                                         for t in tensors((params, opt_state, batch))):
