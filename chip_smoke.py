@@ -166,6 +166,24 @@ GLA_CASES = [
     (1, 5, 2, 64, 64, 64),         # S < one group of steps
     (1, 300, 2, 64, 64, 128),      # a block alone on its SM: twice the lanes
 ]
+# B, S, H, dk, dv — K5's gradient (chunk from bwd_chunk): S a multiple of the
+# tile's chunk, not a multiple, shorter than one; the widest state; a value
+# width not a multiple of 4; the training cell's shape, and it ragged
+GLA_BWD_CASES = [
+    (2, 64, 3, 8, 8),
+    (2, 45, 2, 8, 12),
+    (3, 5, 2, 16, 8),
+    (1, 100, 3, 128, 128),
+    (2, 70, 2, 64, 42),
+    (2, 2048, 40, 64, 64),
+    (2, 2001, 40, 64, 64),
+]
+GLA_BWD_SHAPE = (2, 2048, 40, 64, 64)  # rwkv6-3b-8l.train-2x2048
+# each gradient within this share of its largest |value|: f32 sums over
+# 2,048 steps whose states reach ~2,600; a bf16 gradient carries 2^-9 of
+# its own size (tests/test_torch_gla_scan_bwd.py)
+GLA_BWD_TOL = {"f32": 2e-5, "bf16": 1e-2}
+GLA_BWD_GRADS = ("dr", "dk", "dv", "dw", "du")
 # the splits the cases above must cover
 SSM_COVER = {"lanes": {1, 2, 4, 8}, "groups": {1, 2, 4, 8, 16, 32}}
 GLA_COVER = {"lanes": {2, 4, 8, 16, 32}, "cols": {8, 16, 32, 64}}
@@ -478,7 +496,7 @@ def phase_kernels(cx):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     checked = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
-               "ssm_scan": 0, "gla_scan": 0}
+               "ssm_scan": 0, "gla_scan": 0, "gla_scan_bwd": 0}
     worst = {k: {"f32": 0.0, "bf16": 0.0} for k in checked}
     routes = {"f32": {}, "bf16": {}}  # flash kernel -> cases it took
     splits = {}  # decode: n_splits -> cases
@@ -751,6 +769,8 @@ def phase_kernels(cx):
 
     _scan_kernels(rand, dtypes, checked, worst, at_main)
     torch.cuda.empty_cache()
+    _gla_bwd_kernels(rand, dtypes, checked, worst, at_main)
+    torch.cuda.empty_cache()
     cx.at_main = at_main
     emit({"phase": "kernels", "gpu": cx.smi, "tolerances": TOL, "cases_checked": checked,
           "worst_abs_err": worst, "flash_routes": routes, "decode_splits": splits,
@@ -943,6 +963,87 @@ def _scan_kernels(rand, dtypes, checked, worst, at_main):
         if row["ctas"] < sms:
             raise AssertionError(f"{kname}: {row['ctas']} blocks at the sweep's shape leave SMs "
                                  f"idle ({sms} SMs)")
+
+
+def _check_grads(what, got, want, tol):
+    """Each of K5's five gradients against the plain version's, within
+    ``tol`` of that gradient's largest |value|: the worst absolute error,
+    and the worst as a share of its gradient's largest |value|."""
+    worst_abs = worst_share = 0.0
+    for gname, g, w in zip(GLA_BWD_GRADS, got, want):
+        scale = float(w.float().abs().max())
+        e = check_close("gla_scan_bwd", f"{what} {gname}", g, w, (tol * scale, 0.0))
+        worst_abs = max(worst_abs, e)
+        worst_share = max(worst_share, e / scale if scale else 0.0)
+    return worst_abs, worst_share
+
+
+def _gla_bwd_kernels(rand, dtypes, checked, worst, at_main):
+    """K5's gradient (``gla_scan_bwd``; no TPU kernel, no library call
+    computes it): the cases of ``GLA_BWD_CASES`` against
+    ``gla_scan_bwd_plain`` in f32 and bf16, two calls bit for bit, then
+    at the training cell's shape in f32 its time beside the bound, the
+    plain version's time and that of what it replaced (the chunked
+    oracle's forward recomputed and differentiated by autograd), and its
+    time at each tile size that fits (``bwd_chunk`` picks one)."""
+    import torch
+
+    from repro_torch.kernels import gla_scan as gla
+    from repro_torch.kernels import ref
+
+    def args(B, S, H, dk, dv, dt):
+        # the card test's distributions: decays from ~1e-5 to ~0.99
+        w = torch.exp(-torch.exp(rand(B, S, H, dk, dtype=torch.float32) - 2.0))
+        return (rand(B, S, H, dk, dtype=dt), rand(B, S, H, dk, dtype=dt),
+                rand(B, S, H, dv, dtype=dt), w.to(dt), rand(H, dk, dtype=torch.float32),
+                rand(B, S, H, dv, dtype=dt))
+
+    for name, dt in dtypes.items():
+        for case in GLA_BWD_CASES:
+            a = args(*case, dt)
+            got = gla.gla_scan_bwd(*a)
+            label = f"{name} B,S,H,dk,dv={case} chunk={gla.gla_scan_bwd.last_chunk}"
+            e, _ = _check_grads(label, got, gla.gla_scan_bwd_plain(*a), GLA_BWD_TOL[name])
+            if not all(torch.equal(x, y) for x, y in zip(got, gla.gla_scan_bwd(*a))):
+                raise AssertionError(f"gla_scan_bwd {label}: two calls differ")
+            worst["gla_scan_bwd"][name] = max(worst["gla_scan_bwd"][name], e)
+            checked["gla_scan_bwd"] += 1
+            del a, got
+
+    B, S, H, dk, dv = GLA_BWD_SHAPE
+    nbytes = 4 * (B * S * H * (6 * dk + 3 * dv) + 2 * H * dk)  # r k w v dy in, 4 out; u, du
+    flops = 12 * dk * dv * B * S * H  # the state and its gradient, read for dr dk dv dw
+    sets = [args(B, S, H, dk, dv, torch.float32) for _ in range(n_sets_for(nbytes))]
+    got = gla.gla_scan_bwd(*sets[0])
+    chunk = gla.gla_scan_bwd.last_chunk
+    e, share = _check_grads(f"f32 {GLA_BWD_SHAPE}", got, gla.gla_scan_bwd_plain(*sets[0]),
+                            GLA_BWD_TOL["f32"])
+    del got
+    ms, eager_ms = time_ms(gla.gla_scan_bwd, sets)
+    chunk_ms = {}
+    for c in (8, 16, 32):
+        if gla.bwd_smem_bytes(c, dk, dv) <= gla.MAX_SMEM_BYTES:
+            chunk_ms[c], _ = time_ms(lambda *x, c=c: gla._launch_bwd(
+                *x, c, torch.cuda.current_stream().cuda_stream), sets)
+
+    def oracle(*x):
+        xs = [t.detach().requires_grad_(True) for t in x[:5]]
+        return torch.autograd.grad(ref.gla_scan_chunked_ref(*xs, chunk=64)[0], xs, x[5])
+
+    # both loop over the chunks in Python: CUDA events around eager calls
+    plain_ms = _event_seconds(lambda: gla.gla_scan_bwd_plain(*sets[0]), 3) * 1e3
+    oracle_ms = _event_seconds(lambda: oracle(*sets[0]), 3) * 1e3
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "operations": flops / PEAK_FLOPS["f32"] * 1e3}
+    by = max(terms, key=terms.get)
+    at_main["gla_scan_bwd"] = [{
+        "dtype": "f32", "shape": f"B={B} S={S} H={H} dk={dk} dv={dv}", "chunk": chunk,
+        "max_abs_err": e, "max_err_share_of_largest": share, "tolerance_share": GLA_BWD_TOL["f32"],
+        "ms": ms, "eager_ms": eager_ms, "ms_by_chunk": chunk_ms, "plain_ms": plain_ms,
+        "plain_timing": "eager, CUDA events", "oracle_autograd_ms": oracle_ms,
+        "library_ms": None, "bound_ms": terms[by], "bytes_ms": terms["bytes"],
+        "operations_ms": terms["operations"], "bound_by": by, "share_of_bound": terms[by] / ms}]
+    del sets
 
 
 def _full_model(cx):
@@ -1557,7 +1658,7 @@ def _train_phase(cx, cfg, base_args, device):
     mods = _kernel_wrappers()
     layers = cfg.num_layers
     per_step = {"rmsnorm": 2 * layers + 1, "flash_attention": layers,
-                "decode_attention": 0, "ssm_scan": 0, "gla_scan": 0}
+                "decode_attention": 0, "ssm_scan": 0, "gla_scan": 0, "gla_scan_bwd": 0}
     B, S = (int(base_args[base_args.index(f) + 1]) for f in ("--batch", "--seq"))
     common = {"phase": "train", "gpu": cx.smi, "model": cfg.name, "layers": layers,
               "d_model": cfg.d_model, "vocab": cfg.padded_vocab, "dtype": "f32",
@@ -2963,7 +3064,9 @@ def kernels_line(cx):
     in the ``roofline`` phase's three steps on the kernel path;
     ``multichip_launches`` in the ``multichip`` phase's expert-parallel
     forward; ``graphs_launches`` in the ``graphs`` phase's eager and
-    compiled decode steps."""
+    compiled decode steps.  K5's gradient (``gla_scan_bwd``, f32 at the
+    training cell's shape) replaces no TPU kernel and counts its launches
+    in the ``train_families`` phase, which is its path."""
     meta = {  # route, source, replaces (the pallas_call line), dtype, shape, launches
         "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:40", "bf16", "rows=4096 D=896",
@@ -2980,6 +3083,8 @@ def kernels_line(cx):
         "gla_scan": ("cuda", "src/repro_torch/kernels/csrc/gla_scan.cu",
                      "src/repro/kernels/gla_scan.py:89", "f32", "B=2 S=2048 H=40 dk=64 dv=64",
                      cx.sweep_launches),
+        "gla_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/gla_scan_bwd.cu", "none", "f32",
+                         "B=2 S=2048 H=40 dk=64 dv=64", cx.train_family_launches),
     }
     out = []
     for name, (route, source, replaces, dtype, shape, counts) in meta.items():
@@ -3570,15 +3675,17 @@ TRAIN_FAMILY_LOSS_RTOL = 1e-3
 
 def _family_launches(cfg, remat):
     """Launches of each kernel in one train step: two RMSNorms a layer and
-    the final one, each layer's mixer kernel; a remat mode but none runs
-    every layer's kernels again in its recompute."""
+    the final one, each layer's mixer kernel, each RWKV layer's gradient
+    kernels (``gla_scan_bwd``); a remat mode but none runs every layer's
+    forward kernels again in its recompute."""
     mixers = [m for m, _ in cfg.layer_plan()]
     fwd = {"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": mixers.count("attn"),
            "decode_attention": 0, "ssm_scan": mixers.count("mamba"),
            "gla_scan": mixers.count("rwkv")}
+    bwd = {"gla_scan_bwd": mixers.count("rwkv")}
     if remat == "none":
-        return fwd
-    return {k: 2 * v - (k == "rmsnorm") for k, v in fwd.items()}
+        return {**fwd, **bwd}
+    return {**{k: 2 * v - (k == "rmsnorm") for k, v in fwd.items()}, **bwd}
 
 
 def _gla_f64(r, k, v, w, u):
@@ -3623,7 +3730,12 @@ def _tap_scan(name, found, calls):
     recurrence in float64 (the last call: a float64 recurrence on the card
     takes seconds): ``found`` gathers the calls, the largest distances,
     the largest |output| and the worst excess over the tolerance as the
-    reference tests state it (positive: outside)."""
+    reference tests state it (positive: outside).  Where the scan has
+    gradient kernels (``gla_scan_bwd``), each of the first ``calls`` of
+    them (the same step's backward) is held against their plain version
+    on the same inputs as the ``kernels`` phase holds them
+    (``_check_grads``): ``found`` gathers ``bwd_calls`` and the worst
+    errors."""
     from repro_torch.kernels import ops
 
     attr = _KernelClock.MODS[name]
@@ -3631,6 +3743,7 @@ def _tap_scan(name, found, calls):
     kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
     exact = {"gla_scan": _gla_f64, "ssm_scan": _ssm_f64}[name]
     tol = TOL[name]["f32"]
+    bwd = getattr(mod, name + "_bwd", None)
 
     def tapped(*args, **kw):
         out = kernel(*args, **kw)
@@ -3650,7 +3763,22 @@ def _tap_scan(name, found, calls):
             found["calls"] += 1
         return out
 
-    setattr(ops, attr, types.SimpleNamespace(**{name: tapped}))
+    def tapped_bwd(*args):
+        grads = bwd(*args)
+        if found.setdefault("bwd_calls", 0) < calls:
+            e, share = _check_grads(f"train step, backward call {found['bwd_calls']}", grads,
+                                    getattr(mod, name + "_bwd_plain")(*args), GLA_BWD_TOL["f32"])
+            found["bwd_tolerance_share"] = GLA_BWD_TOL["f32"]
+            found["bwd_kernel_vs_plain"] = max(found.get("bwd_kernel_vs_plain", 0.0), e)
+            found["bwd_err_share_of_largest"] = max(found.get("bwd_err_share_of_largest", 0.0),
+                                                    share)
+            found["bwd_calls"] += 1
+        return grads
+
+    taps = {name: tapped}
+    if bwd is not None:
+        taps[name + "_bwd"] = tapped_bwd
+    setattr(ops, attr, types.SimpleNamespace(**{**vars(mod), **taps}))
     try:
         yield
     finally:
@@ -3686,7 +3814,8 @@ def _family_split(spec, args, cfg, mods):
     """TRAIN_FAMILY_SPLIT_STEPS eager steps of the main run's
     cut and remat mode, with each step's forward / backward / optimizer
     seconds, the oracle recomputes' device time and the first step's scan
-    calls against the plain version taken as it runs."""
+    calls (forward and gradient) against the plain version taken as it
+    runs."""
     i = args.index("--steps")
     split_args = args[:i] + ["--steps", str(TRAIN_FAMILY_SPLIT_STEPS)] + args[i + 2:]
     found = {"calls": 0}
@@ -3745,8 +3874,8 @@ def phase_train_families(cx):
     reserved).  Then, in three eager steps of the same cut: forward /
     backward / optimizer seconds and the scans' oracle recompute inside
     the backward (CUDA events around each ``_RefVJP.backward``), and each
-    scan call of the first step's forward against the kernel's plain
-    version.  Last, three steps on the kernel path against the chunked
+    scan call of the first step's forward, and each call of K5's gradient
+    in its backward, against the kernel's plain version.  Last, three steps on the kernel path against the chunked
     oracles from the same weights."""
     import gc
     import statistics
@@ -3810,14 +3939,17 @@ def phase_train_families(cx):
             split["oracle_backward_ms_per_step"].get(scan, 0.0) / 1e3
             / split["backward_seconds"])))
 
-        # each scan call of the first step's forward against the plain version
+        # each scan call of the first step's forward, and of its gradient in
+        # the backward, against the plain version
         tap = rec["tap"]
         emit(dict(common, part="kernel_vs_plain", kernel=scan, tolerance=TOL[scan]["f32"],
                   tolerance_at_scale=_at_scale(TOL[scan]["f32"], tap["max_abs_plain"]),
                   **tap))
-        if tap["calls"] != _family_launches(cfg, "none")[scan]:
-            raise AssertionError(f"train_families {name}: {tap['calls']} {scan} calls held "
-                                 "to the plain version")
+        held = _family_launches(cfg, "none")
+        if (tap["calls"], tap.get("bwd_calls", 0)) != (held[scan], held.get(scan + "_bwd", 0)):
+            raise AssertionError(f"train_families {name}: {tap['calls']} {scan} calls and "
+                                 f"{tap.get('bwd_calls', 0)} of its gradient held to the "
+                                 "plain version")
         del srun, rec
         gc.collect()
         torch.cuda.empty_cache()

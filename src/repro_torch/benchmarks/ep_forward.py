@@ -59,11 +59,9 @@ class _AllReduces(TorchDispatchMode):
 
 
 def _kernels():
-    from repro_torch.kernels import decode_attention, flash_attention, gla_scan, rmsnorm, ssm_scan
+    from repro_torch.runtime.graphs import kernel_counters
 
-    return {"rmsnorm": rmsnorm.rmsnorm, "flash_attention": flash_attention.flash_attention,
-            "decode_attention": decode_attention.decode_attention,
-            "ssm_scan": ssm_scan.ssm_scan, "gla_scan": gla_scan.gla_scan}
+    return {fn.__name__: fn for fn in kernel_counters()}
 
 
 @contextlib.contextmanager

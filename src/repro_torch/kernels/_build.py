@@ -40,6 +40,7 @@ SOURCES = {
     "decode_attention": "decode_attention.cu",
     "ssm_scan": "ssm_scan.cu",
     "gla_scan": "gla_scan.cu",
+    "gla_scan_bwd": "gla_scan_bwd.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -15,6 +15,11 @@ chooses itself, from the shapes and the SM count (``split``), is how the
 state is cut: 8 rows of a column a lane (``lanes_for``) and the columns a
 block owns (``block_cols``), so that one call puts at least two blocks on
 every SM.  ``gla_scan.last_split`` records the choice.
+
+``gla_scan_bwd`` is the gradient (csrc/gla_scan_bwd.cu, three kernels a
+call: the states at the chunks' boundaries, every (batch, head, chunk)
+tile, the ordered sum of ``du``); ``gla_scan_bwd_plain`` is its arithmetic
+in plain PyTorch.  Its chunk (``bwd_chunk``) follows from the shapes alone.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._tiles import clamp_tile, lane_index, reduce_lanes, sm_count
+from repro_torch.kernels._tiles import clamp_tile, lane_index, pow2_ceil, reduce_lanes, sm_count
 
 MAX_SMEM_BYTES = 232448
 #: the key dims the kernel is instantiated for (dk is padded up to one)
@@ -42,6 +47,14 @@ SMEM_PER_BLOCK_RESERVED = 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _FN = None
+
+#: the gradient's kernels take dk and dv up to this; a tile at most this many tokens
+BWD_MAX_DIM = 128
+BWD_MAX_CHUNK = 32
+#: below this the decay's log is clamped (the chunked oracle's ``clamp``)
+MIN_DECAY = 1e-30
+_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_FN = None
 
 
 def pad_key_dim(dk: int) -> int:
@@ -165,6 +178,29 @@ def gla_scan_plain(r, k, v, w, u, *, lanes: int = 1) -> torch.Tensor:
     return y.to(r.dtype)
 
 
+def _check_shapes(what, r, k, v, w, u, dy=None):
+    if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape or v.dim() != 4 \
+            or v.shape[:3] != r.shape[:3] or u.shape != (r.shape[2], r.shape[3]) \
+            or (dy is not None and dy.shape != v.shape):
+        raise ValueError(f"{what}: r, k, w must be (B, S, H, dk), v{'' if dy is None else ' and dy'}"
+                         f" (B, S, H, dv), u (H, dk); got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(w.shape)}, {tuple(u.shape)}"
+                         + ("" if dy is None else f", {tuple(dy.shape)}"))
+
+
+def _check_card(what, r, *rest):
+    """A CUDA launch's tensors (``rest``: k, v, w, u and maybe dy) lie on one
+    card, and all but ``u`` share float32 or bfloat16."""
+    if r.device.type != "cuda":
+        raise RuntimeError(f"{what} kernel: unsupported device {r.device}")
+    typed = [r, *rest[:3], *rest[4:]]
+    if r.dtype not in _DTYPE_CODE or any(t.dtype != r.dtype for t in typed):
+        raise TypeError(f"{what} kernel: r, k, v, w{', dy' if len(rest) > 4 else ''} must share "
+                        f"float32 or bfloat16, got {', '.join(str(t.dtype) for t in typed)}")
+    if any(t.device != r.device for t in rest):
+        raise RuntimeError(f"{what} kernel: tensors lie on different devices")
+
+
 def _fn():
     global _FN
     if _FN is None:
@@ -214,24 +250,14 @@ def gla_scan(
     ``gla_scan_plain``.  On the card the wrapper chooses the split
     (``split``: lanes a column, columns a block, from the shapes and the SM
     count) and records it in ``gla_scan.last_split``."""
-    if r.dim() != 4 or k.shape != r.shape or w.shape != r.shape or v.dim() != 4 \
-            or v.shape[:3] != r.shape[:3] or u.shape != (r.shape[2], r.shape[3]):
-        raise ValueError("gla_scan: r, k, w must be (B, S, H, dk), v (B, S, H, dv), "
-                         f"u (H, dk); got {tuple(r.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}, {tuple(w.shape)}, {tuple(u.shape)}")
+    _check_shapes("gla_scan", r, k, v, w, u)
     B, S, H, dk = r.shape
     cfg = effective_config(chunk, S, dk, v.shape[-1])
     gla_scan.last_config = cfg
     if r.device.type == "cpu":
         gla_scan.last_split = None
         return gla_scan_plain(r, k, v, w, u)
-    if r.device.type != "cuda":
-        raise RuntimeError(f"gla_scan kernel: unsupported device {r.device}")
-    if r.dtype not in _DTYPE_CODE or not (r.dtype == k.dtype == v.dtype == w.dtype):
-        raise TypeError("gla_scan kernel: r, k, v, w must share float32 or bfloat16, "
-                        f"got {r.dtype}, {k.dtype}, {v.dtype}, {w.dtype}")
-    if any(t.device != r.device for t in (k, v, w, u)):
-        raise RuntimeError("gla_scan kernel: tensors lie on different devices")
+    _check_card("gla_scan", r, k, v, w, u)
     sp = split(B, H, dk, v.shape[-1], sm_count(r.device), cfg["chunk"])
     gla_scan.last_split = sp
     with torch.cuda.device(r.device):
@@ -247,3 +273,163 @@ gla_scan.launches = 0
 gla_scan.last_config = None
 #: the split the last call launched (``split``); None on the CPU path
 gla_scan.last_split = None
+
+
+# ---------------------------------------------------------------------------
+# the gradient
+# ---------------------------------------------------------------------------
+
+
+def bwd_smem_bytes(chunk: int, dk: int, dv: int) -> int:
+    """Shared memory of one tile of the gradient (``tile_floats`` in the
+    source): two (chunk, dv) arrays and the chunk's start state and end
+    gradient, rows read as 16-byte words (stride 4 mod 8); ten (chunk, dk)
+    arrays, read down their columns (odd stride); two (chunk, chunk) pair
+    arrays, u and the bonus; f32.  The chunk rule reads it; the launch
+    refuses (cudaErrorInvalidValue) a tile that would not fit."""
+    ks = dk if dk % 2 else dk + 1
+    d4 = -(-dv // 4) * 4
+    vs = d4 if d4 % 8 else d4 + 4
+    return 4 * (2 * chunk * vs + 2 * dk * vs + 10 * chunk * ks + 2 * chunk * (chunk + 1)
+                + dk + chunk)
+
+
+def bwd_chunk(S: int, dk: int, dv: int) -> int:
+    """Tokens of one tile of the gradient: a power of two up to
+    ``BWD_MAX_CHUNK`` and not above ``S`` rounded up to a power of two; the
+    largest at which two tiles share an SM's shared memory, unless that is
+    below 16, then the largest at which one tile fits (16 at dk = dv = 64,
+    8 at 128).  At dk = dv = 64 on an H100 one call took 1.61 ms at 16
+    tokens, 2.93 ms at 32 (one tile an SM) and 2.01 ms at 8 (PERF.md)."""
+    sizes = [c for c in (BWD_MAX_CHUNK >> i for i in range(BWD_MAX_CHUNK.bit_length()))
+             if c <= pow2_ceil(max(S, 1))]
+    per_sm = lambda c: SMEM_PER_SM // (bwd_smem_bytes(c, dk, dv) + SMEM_PER_BLOCK_RESERVED)  # noqa: E731
+    two = next((c for c in sizes if per_sm(c) >= 2), 1)
+    if two >= min(16, sizes[0]):
+        return two
+    return next(c for c in sizes if bwd_smem_bytes(c, dk, dv) <= MAX_SMEM_BYTES)
+
+
+def gla_scan_bwd_plain(r, k, v, w, u, dy, *, chunk: int = 0):
+    """The gradient kernels' arithmetic in plain PyTorch, f32 throughout
+    (f64 for f64 inputs): returns ``(dr, dk, dv, dw, du)``, the first four
+    in the inputs' types, ``du`` in ``u``'s.  ``chunk`` (default
+    ``bwd_chunk``) cuts the sequence as the kernels do; every chunk is
+    computed at once, the carried states by a loop over the chunks (the
+    kernels walk them token by token)."""
+    B, S, H, dk = r.shape
+    dv = v.shape[-1]
+    C = chunk or bwd_chunk(S, dk, dv)
+    nc = -(-S // C)
+    pad = nc * C - S
+    ft = torch.promote_types(r.dtype, torch.float32)
+    seq = lambda a, fill=0.0: torch.nn.functional.pad(  # noqa: E731
+        a.to(ft), (0, 0, 0, 0, 0, pad), value=fill).reshape(B, nc, C, H, -1).permute(0, 3, 1, 2, 4)
+    R, K, V, DY, W = seq(r), seq(k), seq(v), seq(dy), seq(w, 1.0)  # (B, H, nc, C, d)
+    uf = u.to(ft)[None, :, None, None, :]
+    cum = torch.log2(W.clamp(min=MIN_DECAY)).cumsum(3)  # log2 decay through token t
+    exc = torch.nn.functional.pad(cum[..., :-1, :], (0, 0, 1, 0))  # ... through t - 1
+    end = cum[..., -1:, :]
+    # the carried states: S at each chunk's start, G after each chunk's end
+    kt = K * torch.exp2(end - cum)  # k decayed to the chunk's end
+    own_s = torch.einsum("bhnsk,bhnsv->bhnkv", kt, V)
+    own_g = torch.einsum("bhntk,bhntv->bhnkv", R * torch.exp2(exc), DY)
+    S0, GE = torch.empty_like(own_s), torch.empty_like(own_g)
+    st, g = torch.zeros_like(own_s[:, :, 0]), torch.zeros_like(own_g[:, :, 0])
+    carry = torch.exp2(end[..., 0, :])[..., None]  # (B, H, nc, dk, 1)
+    for c in range(nc):
+        S0[:, :, c] = st
+        st = carry[:, :, c] * st + own_s[:, :, c]
+        GE[:, :, nc - 1 - c] = g
+        g = carry[:, :, nc - 1 - c] * g + own_g[:, :, nc - 1 - c]
+    # the pairs s < t inside a chunk
+    tri = torch.ones(C, C, dtype=torch.bool, device=r.device).tril(-1)[..., None]
+    E = torch.exp2((exc[..., :, None, :] - cum[..., None, :, :]).masked_fill(~tri, -torch.inf))
+    P = torch.einsum("bhnsv,bhntv->bhnts", V, DY)  # P[t, s] = v_s . dy_t
+    pd = torch.diagonal(P, dim1=-2, dim2=-1)[..., None]  # v_t . dy_t
+    A = torch.einsum("bhntk,bhnsk,bhntsk->bhnts", R, K, E)
+    bonus = (R * uf * K).sum(-1, keepdim=True)
+    Y = torch.einsum("bhnkv,bhntv->bhntk", S0, DY)  # the start state read by dy_t
+    X = torch.einsum("bhnkv,bhnsv->bhnsk", GE, V)  # the end gradient read by v_s
+    before, after = torch.exp2(exc), torch.exp2(end - cum)
+    dR = before * Y + torch.einsum("bhntsk,bhnsk,bhnts->bhntk", E, K, P) + uf * pd * K
+    dK = after * X + torch.einsum("bhntsk,bhntk,bhnts->bhnsk", E, R, P) + uf * pd * R
+    dV = (torch.einsum("bhnsk,bhnkv->bhnsv", kt, GE) + torch.einsum("bhnts,bhntv->bhnsv", A, DY)
+          + bonus * DY)
+    # the decay, w_m left out of each pair's product (the source's note):
+    # alpha[m, t] = r_t exp2(exc_t - cum_m), t > m; beta[m, s] = k_s exp2(exc_m - cum_s), s < m
+    idx = torch.arange(C, device=r.device)
+    later, earlier = (idx[None, :] > idx[:, None])[..., None], (idx[None, :] < idx[:, None])[..., None]
+    alpha = R[..., None, :, :] * torch.exp2(
+        (exc[..., None, :, :] - cum[..., :, None, :]).masked_fill(~later, -torch.inf))
+    beta = K[..., None, :, :] * torch.exp2(
+        (exc[..., :, None, :] - cum[..., None, :, :]).masked_fill(~earlier, -torch.inf))
+    Z = torch.einsum("bhnmsk,bhnts->bhnmtk", beta, P)  # the chunk's own state before m, read by dy_t
+    cross = (S0 * GE).sum(-1)[..., None, :]
+    dW = ((alpha * (before[..., :, None, :] * Y[..., None, :, :] + Z)).sum(-2)
+          + after * (beta * X[..., None, :, :]).sum(-2) + before * after * cross)
+    du = (R * K * pd).sum(dim=(0, 2, 3))
+    back = lambda a, like: a.permute(0, 2, 3, 1, 4).reshape(B, nc * C, H, -1)[:, :S].to(like.dtype)  # noqa: E731
+    return back(dR, r), back(dK, k), back(dV, v), back(dW, w), du.to(u.dtype)
+
+
+def _bwd_fn():
+    global _BWD_FN
+    if _BWD_FN is None:
+        fn = _build.load("gla_scan_bwd").gla_scan_bwd
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        _BWD_FN = fn
+    return _BWD_FN
+
+
+def _launch_bwd(r, k, v, w, u, dy, chunk: int, stream: int):
+    """Allocate the gradients and the scratch (the boundary states and the
+    partial ``du``: ``torch.empty``, so a captured graph keeps them in its
+    pool) and launch the three kernels on ``stream`` with ``chunk`` tokens
+    a tile."""
+    r, k, v, w, dy = (t.contiguous() for t in (r, k, v, w, dy))
+    u = u.float().contiguous()
+    B, S, H, dk = r.shape
+    dv = v.shape[-1]
+    nc = -(-S // chunk)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    states = torch.empty((2, B, H, nc, dk, dv), **f32)
+    du_part = torch.empty((B, nc, H, dk), **f32)
+    du = torch.empty((H, dk), **f32)
+    dr, dk_, dw, dv_ = (torch.empty_like(t) for t in (r, k, w, v))
+    err = _bwd_fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                    dy.data_ptr(), dr.data_ptr(), dk_.data_ptr(), dv_.data_ptr(), dw.data_ptr(),
+                    du.data_ptr(), states[0].data_ptr(), states[1].data_ptr(),
+                    du_part.data_ptr(), _DTYPE_CODE[r.dtype], B, S, H, dk, dv, chunk, stream)
+    _build.check(err, "gla_scan_bwd")
+    return dr, dk_, dv_, dw, du
+
+
+def gla_scan_bwd(r, k, v, w, u, dy):
+    """``(dr, dk, dv, dw, du)`` of ``gla_scan`` at these inputs for the
+    output's gradient ``dy``: the first four in the inputs' types, ``du``
+    in ``u``'s.  CUDA tensors go through the three kernels of
+    csrc/gla_scan_bwd.cu (or raise); CPU tensors take
+    ``gla_scan_bwd_plain``.  The chunk follows from the shapes
+    (``bwd_chunk``); ``gla_scan_bwd.last_chunk`` records it."""
+    _check_shapes("gla_scan_bwd", r, k, v, w, u, dy)
+    B, S, H, dk = r.shape
+    dv = v.shape[-1]
+    chunk = bwd_chunk(S, dk, dv)
+    gla_scan_bwd.last_chunk = chunk
+    if r.device.type == "cpu":
+        return gla_scan_bwd_plain(r, k, v, w, u, dy, chunk=chunk)
+    _check_card("gla_scan_bwd", r, k, v, w, u, dy)
+    if dk > BWD_MAX_DIM or dv > BWD_MAX_DIM:
+        raise ValueError(f"gla_scan_bwd kernel: dk={dk}, dv={dv}; at most {BWD_MAX_DIM} each")
+    with torch.cuda.device(r.device):
+        out = _launch_bwd(r, k, v, w, u, dy, chunk, torch.cuda.current_stream().cuda_stream)
+    gla_scan_bwd.launches += 1
+    return (*out[:4], out[4].to(u.dtype))
+
+
+#: calls that launched the gradient's kernels since the count was last set to 0
+gla_scan_bwd.launches = 0
+#: the tokens a tile of the last call (``bwd_chunk``)
+gla_scan_bwd.last_chunk = None

@@ -7,9 +7,11 @@
                    kernel's plain PyTorch version, for the CPU tests.
   * ``"chunked"``— chunked oracle form.
 
-Kernel forward passes pair with an oracle-recompute backward
-(``_ref_vjp``): the standard remat-style pairing that keeps the graph
-differentiable while the forward hot-spot runs the hand-written kernel.
+The RWKV-6 scan (K5) pairs its kernel forward with its own gradient
+kernels (``_GlaScan``, ``gla_scan.gla_scan_bwd``).  The other kernels'
+forward passes pair with an oracle-recompute backward (``_ref_vjp``): the
+remat-style pairing that keeps the graph differentiable while the forward
+hot-spot runs the hand-written kernel.
 
 The oracle forms of the four kernelised regions run as the trace regions
 ``krnl_flash_attn``, ``krnl_decode_attn``, ``krnl_ssm_scan`` and
@@ -109,6 +111,21 @@ class _RefVJP(torch.autograd.Function):
         grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
         return (None, None, None, *(next(grads) if need else None
                                     for need in ctx.needs_input_grad[3:]))
+
+
+class _GlaScan(torch.autograd.Function):
+    """K5 forward, K5 gradient: both hand-written (a CPU tensor takes each
+    one's plain version)."""
+
+    @staticmethod
+    def forward(ctx, chunk, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _gla_mod.gla_scan(r, k, v, w, u, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _gla_mod.gla_scan_bwd(*ctx.saved_tensors, g)
+        return (None, *(d if need else None for d, need in zip(grads, ctx.needs_input_grad[1:])))
 
 
 def _ref_vjp(kernel, kernel_fn, ref_fn):
@@ -278,6 +295,6 @@ def gla_scan(
         return trace_hooks.region(
             "krnl_gla_scan", lambda *a: ref.gla_scan_chunked_ref(*a, chunk=chunk)[0],
             r, k, v, w, u)
-    kernel_fn = functools.partial(_gla_mod.gla_scan, chunk=chunk)
-    ref_fn = lambda *a: ref.gla_scan_chunked_ref(*a, chunk=chunk)[0]
-    return _ref_vjp("gla_scan", kernel_fn, ref_fn)(r, k, v, w, u)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (r, k, v, w, u)):
+        return _GlaScan.apply(chunk, r, k, v, w, u)
+    return _gla_mod.gla_scan(r, k, v, w, u, chunk=chunk)

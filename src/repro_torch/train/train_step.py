@@ -10,7 +10,8 @@ whatever their number.
 The forward runs the hand-written kernels where the runtime selects them
 (``attn_impl="cuda"``); each kernel's backward recomputes through its
 oracle (``kernels/ops.py``, ``_RefVJP``), as the reference pairs its Pallas
-forwards with an oracle backward.
+forwards with an oracle backward, but for the RWKV-6 scan, whose gradient
+is hand-written too (``gla_scan.gla_scan_bwd``).
 
 ``make_graphed_train_step`` is the trainer's step on the card, the
 counterpart of the reference's ``jax.jit(step_fn, donate_argnums=(0, 1))``:

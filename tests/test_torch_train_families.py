@@ -195,7 +195,9 @@ def _scan_args(rng, *shapes):
 def test_oracle_backward_node_names_its_kernel(kernel):
     """The ``_RefVJP`` node of each kernel's forward carries the kernel's
     name (``chip_smoke.py`` times each scan's oracle recompute by it), and
-    its gradient is the oracle's."""
+    its gradient is the oracle's.  K5 (``gla_scan``) pairs with its own
+    gradient kernels instead (``_GlaScan``), whose gradient is the
+    oracle's too."""
     rng = np.random.default_rng(0)
     b, s, d = 1, 16, 8
     calls = {
@@ -215,7 +217,10 @@ def test_oracle_backward_node_names_its_kernel(kernel):
             else:
                 args[3].copy_(torch.exp(-torch.exp(args[3] * 0.5 - 1.0)))
     out = fn(*args, impl="cuda", **kw)
-    assert type(out.grad_fn).__name__ == "_RefVJPBackward" and out.grad_fn.kernel == kernel
+    if kernel == "gla_scan":
+        assert type(out.grad_fn).__name__ == "_GlaScanBackward"
+    else:
+        assert type(out.grad_fn).__name__ == "_RefVJPBackward" and out.grad_fn.kernel == kernel
     got = torch.autograd.grad(out.sum(), args)
     want = torch.autograd.grad(fn(*args, impl="chunked" if kernel != "rmsnorm" else "ref",
                                   **kw).sum(), args)
