@@ -184,6 +184,22 @@ GLA_BWD_SHAPE = (2, 2048, 40, 64, 64)  # rwkv6-3b-8l.train-2x2048
 # its own size (tests/test_torch_gla_scan_bwd.py)
 GLA_BWD_TOL = {"f32": 2e-5, "bf16": 1e-2}
 GLA_BWD_GRADS = ("dr", "dk", "dv", "dw", "du")
+# K5 storing its final state (``gla_scan_state``, the served prefill's):
+# f32 or bf16 r, k, v beside an f32 decay; B, S, H, dk, dv, chunk, S a
+# multiple of the staging depth and not
+GLA_STATE_CASES = [
+    (2, 256, 5, 64, 64, 64),
+    (3, 301, 4, 64, 64, 64),
+    (2, 77, 3, 32, 40, 16),
+    (1, 50, 2, 128, 64, 32),
+    (2, 45, 3, 8, 8, 16),
+    (1, 33, 2, 20, 24, 16),  # bf16 rows of 40 bytes: staged by plain loads
+]
+# rwkv6-3b.serve-chat's prefill: a wave of 64 prompts padded to 2,048, bf16
+GLA_STATE_SHAPE = (64, 2048, 40, 64, 64)
+# y within the gla_scan tolerance of its type; the f32 state within 2e-5 of
+# its largest |value| (f32 sums over up to 2,048 steps)
+GLA_STATE_TOL = 2e-5
 # the splits the cases above must cover
 SSM_COVER = {"lanes": {1, 2, 4, 8}, "groups": {1, 2, 4, 8, 16, 32}}
 GLA_COVER = {"lanes": {2, 4, 8, 16, 32}, "cols": {8, 16, 32, 64}}
@@ -496,7 +512,7 @@ def phase_kernels(cx):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     checked = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0,
-               "ssm_scan": 0, "gla_scan": 0, "gla_scan_bwd": 0}
+               "ssm_scan": 0, "gla_scan": 0, "gla_scan_bwd": 0, "gla_scan_state": 0}
     worst = {k: {"f32": 0.0, "bf16": 0.0} for k in checked}
     routes = {"f32": {}, "bf16": {}}  # flash kernel -> cases it took
     splits = {}  # decode: n_splits -> cases
@@ -771,6 +787,8 @@ def phase_kernels(cx):
     torch.cuda.empty_cache()
     _gla_bwd_kernels(rand, dtypes, checked, worst, at_main)
     torch.cuda.empty_cache()
+    _gla_state_kernels(rand, dtypes, checked, worst, at_main)
+    torch.cuda.empty_cache()
     cx.at_main = at_main
     emit({"phase": "kernels", "gpu": cx.smi, "tolerances": TOL, "cases_checked": checked,
           "worst_abs_err": worst, "flash_routes": routes, "decode_splits": splits,
@@ -1041,6 +1059,82 @@ def _gla_bwd_kernels(rand, dtypes, checked, worst, at_main):
         "max_abs_err": e, "max_err_share_of_largest": share, "tolerance_share": GLA_BWD_TOL["f32"],
         "ms": ms, "eager_ms": eager_ms, "ms_by_chunk": chunk_ms, "plain_ms": plain_ms,
         "plain_timing": "eager, CUDA events", "oracle_autograd_ms": oracle_ms,
+        "library_ms": None, "bound_ms": terms[by], "bytes_ms": terms["bytes"],
+        "operations_ms": terms["operations"], "bound_by": by, "share_of_bound": terms[by] / ms}]
+    del sets
+
+
+def _gla_state_kernels(rand, dtypes, checked, worst, at_main):
+    """K5 storing its final state (``gla_scan_state``: ``gla_state_kernel``,
+    f32 decay; the served prefill's): the cases of ``GLA_STATE_CASES`` in f32
+    and bf16 against ``gla_scan_plain(..., final_state=True)``, y and the
+    state; two calls bit for bit; ``gla_scan`` on the same inputs at the
+    same staging depth gives the same y.  Then ``GLA_STATE_SHAPE`` in bf16 (rwkv6-3b.serve-chat's
+    prefill): error, time, plain time, and the bound of
+    ``portbench/roofline_served.py`` (operations at the f32 rate, bytes
+    over every slot: here nothing is padding)."""
+    import torch
+
+    from portbench.roofline_served import k5_state_call
+    from repro_torch.kernels import gla_scan as gla
+
+    def args(B, S, H, dk, dv, dt, decay=-3.0):
+        w = torch.exp(-torch.exp(rand(B, S, H, dk, dtype=torch.float32) + decay))
+        return (rand(B, S, H, dk, dtype=dt), rand(B, S, H, dk, dtype=dt),
+                rand(B, S, H, dv, dtype=dt), w, rand(H, dk, dtype=torch.float32),
+                torch.empty((B, H, dk, dv), dtype=torch.float32, device="cuda"))
+
+    def share(got, want):
+        return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+    for name, dt in dtypes.items():
+        for case in GLA_STATE_CASES:
+            B, S, H, dk, dv, chunk = case
+            a = args(B, S, H, dk, dv, dt)
+            y = gla.gla_scan_state(*a, chunk=chunk)
+            want_y, want_s = gla.gla_scan_plain(*a[:5], final_state=True)
+            label = f"{name} B,S,H,dk,dv,chunk={case} {gla.gla_scan_state.last_split}"
+            e = check_close("gla_scan_state", f"{label} y", y, want_y, TOL["gla_scan"][name])
+            s_share = share(a[5], want_s)
+            if s_share > GLA_STATE_TOL:
+                raise AssertionError(f"gla_scan_state {label}: state off by {s_share:.3e} of its "
+                                     f"largest value (> {GLA_STATE_TOL})")
+            again = torch.empty_like(a[5])
+            if not (torch.equal(gla.gla_scan_state(*a[:5], again, chunk=chunk), y)
+                    and torch.equal(again, a[5])):
+                raise AssertionError(f"gla_scan_state {label}: two calls differ")
+            depth = gla.gla_scan_state.last_config["chunk"]
+            if not torch.equal(gla.gla_scan(*a[:5], chunk=depth), y):
+                raise AssertionError(f"gla_scan_state {label}: gla_scan gives another y")
+            worst["gla_scan_state"][name] = max(worst["gla_scan_state"][name], e)
+            checked["gla_scan_state"] += 1
+
+    B, S, H, dk, dv = GLA_STATE_SHAPE
+    flops, nbytes = k5_state_call(B, S, H, dk, dv, "bf16")
+    sets = [args(B, S, H, dk, dv, torch.bfloat16, decay=-5.0) for _ in range(n_sets_for(nbytes))]
+    y = gla.gla_scan_state(*sets[0])
+    cfg, sp = dict(gla.gla_scan_state.last_config), dict(gla.gla_scan_state.last_split)
+    want_y, want_s = gla.gla_scan_plain(*sets[0][:5], final_state=True)
+    e = check_close("gla_scan_state", f"bf16 {GLA_STATE_SHAPE} y", y, want_y,
+                    TOL["gla_scan"]["bf16"])
+    s_share = share(sets[0][5], want_s)
+    if s_share > GLA_STATE_TOL:
+        raise AssertionError(f"gla_scan_state bf16 {GLA_STATE_SHAPE}: state off by "
+                             f"{s_share:.3e} of its largest value")
+    del y, want_y, want_s
+    ms, eager_ms = time_ms(gla.gla_scan_state, sets)
+    plain_ms = _event_seconds(lambda: gla.gla_scan_plain(*sets[0][:5], final_state=True), 1) * 1e3
+    resident = gla.resident_blocks(torch.bfloat16, dk, cfg["chunk"], sp["lanes"], sp["cols"],
+                                   state_kernel=True)
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "operations": flops / PEAK_FLOPS["f32"] * 1e3}
+    by = max(terms, key=terms.get)
+    at_main["gla_scan_state"] = [{
+        "dtype": "bf16", "shape": f"B={B} S={S} H={H} dk={dk} dv={dv}", "w_dtype": "f32",
+        "config": cfg, "split": sp, "ctas": sp["blocks"], "resident_per_sm": resident,
+        "resident_per_sm_rule": gla.resident(cfg["chunk"], dk, sp["cols"], sp["lanes"]),
+        "max_abs_err": e, "state_err_share_of_largest": s_share, "ms": ms,
+        "eager_ms": eager_ms, "plain_ms": plain_ms, "plain_timing": "eager, CUDA events",
         "library_ms": None, "bound_ms": terms[by], "bytes_ms": terms["bytes"],
         "operations_ms": terms["operations"], "bound_by": by, "share_of_bound": terms[by] / ms}]
     del sets
@@ -1658,7 +1752,8 @@ def _train_phase(cx, cfg, base_args, device):
     mods = _kernel_wrappers()
     layers = cfg.num_layers
     per_step = {"rmsnorm": 2 * layers + 1, "flash_attention": layers,
-                "decode_attention": 0, "ssm_scan": 0, "gla_scan": 0, "gla_scan_bwd": 0}
+                "decode_attention": 0, "ssm_scan": 0, "gla_scan": 0, "gla_scan_bwd": 0,
+                "gla_scan_state": 0}
     B, S = (int(base_args[base_args.index(f) + 1]) for f in ("--batch", "--seq"))
     common = {"phase": "train", "gpu": cx.smi, "model": cfg.name, "layers": layers,
               "d_model": cfg.d_model, "vocab": cfg.padded_vocab, "dtype": "f32",
@@ -2664,8 +2759,8 @@ def phase_families(cx):
         infos = {k: v[1] for k, v in runs.items()}
         del runs, p32, p16, model
         torch.cuda.empty_cache()
-        served = _family_served("rwkv6-3b", mods, dict(
-            zero, rmsnorm=(2 * L + 1) * 32))  # prefill: the chunked oracle (it returns the state)
+        served = _family_served("rwkv6-3b", mods, dict(  # the prefill's K5 stores the state
+            zero, rmsnorm=(2 * L + 1) * 32, gla_scan_state=L))
         _add_counts(total, served["launches"])
         report["rwkv6-3b"] = {"layers": L, "d_model": cfg.d_model, "B": FAMILY_B, "S": FAMILY_S,
                               "params": cfg.param_counts()["total"], "forward": infos,
@@ -3085,6 +3180,9 @@ def kernels_line(cx):
                      cx.sweep_launches),
         "gla_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/gla_scan_bwd.cu", "none", "f32",
                          "B=2 S=2048 H=40 dk=64 dv=64", cx.train_family_launches),
+        "gla_scan_state": ("cuda", "src/repro_torch/kernels/csrc/gla_scan.cu",
+                           "src/repro/kernels/gla_scan.py:89", "bf16",
+                           "B=64 S=2048 H=40 dk=64 dv=64", cx.family_launches),
     }
     out = []
     for name, (route, source, replaces, dtype, shape, counts) in meta.items():
@@ -3682,7 +3780,7 @@ def _family_launches(cfg, remat):
     fwd = {"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": mixers.count("attn"),
            "decode_attention": 0, "ssm_scan": mixers.count("mamba"),
            "gla_scan": mixers.count("rwkv")}
-    bwd = {"gla_scan_bwd": mixers.count("rwkv")}
+    bwd = {"gla_scan_bwd": mixers.count("rwkv"), "gla_scan_state": 0}
     if remat == "none":
         return {**fwd, **bwd}
     return {**{k: 2 * v - (k == "rmsnorm") for k, v in fwd.items()}, **bwd}

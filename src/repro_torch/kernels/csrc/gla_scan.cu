@@ -54,11 +54,22 @@
 //
 // The TPU kernel's grid carried S across sequence chunks in scratch
 // memory; here the sequence loop is inside the thread.
+//
+// Two kernels share this body.  `gla_kernel` takes r, k, v, w in one type
+// (f32 or bf16) and writes y only: the training forward.  `gla_state_kernel`
+// takes the decay w in f32 beside r, k, v in f32 or bf16 (a decay near 1
+// rounds badly in bf16: 0.9975 becomes 0.9961, and the error compounds over
+// the sequence), and where `state` is set it stores the state after the last
+// token, (B, H, dk, dv) f32, once: the served prefill's cache.  In bf16 its
+// w is staged in f32 beside the bf16 buffer and copied into the fp32 rows
+// by the widening pass; nothing else of the step changes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -95,6 +106,7 @@ struct GlaParams {
   const void* w;  // (B, S, H, dk)
   const float* u; // (H, dk)
   void* y;        // (B, S, H, dv)
+  float* state;   // (B, H, dk, dv) f32, the state after the last token; null: not stored
   int S, H, dk, dv, chunk, cols;  // cols: columns of S a block owns (a multiple of 8)
   int vec_rkw;    // rows of r, k, w are 16-byte aligned: stage them by cp.async
   int vec_v;      // so are the block's columns of v
@@ -102,34 +114,58 @@ struct GlaParams {
 
 // Stage steps [t0, t0 + tn) into dst[tn][ROW] (input type): r, k, w (DKP
 // each, zero past dk), then the block's `cols` columns of v (zero past dv).
-template <typename T, int DKP>
-__device__ __forceinline__ void stage(const GlaParams& p, const T* rb, const T* kb, const T* wb,
+// Where w's type TW is not T (f32 beside bf16), w goes to wdst[tn][DKP]
+// instead, in f32, and its slots of dst are left as they are.
+template <typename T, typename TW, int DKP>
+__device__ __forceinline__ void stage(const GlaParams& p, const T* rb, const T* kb, const TW* wb,
                                       const T* vb, long long srow, long long vrow, int ncols,
-                                      int t0, int tn, T* dst) {
+                                      int t0, int tn, T* dst, TW* wdst) {
   constexpr int EPC = 16 / (int)sizeof(T);  // elements a 16-byte copy
+  constexpr bool SPLIT_W = !std::is_same<T, TW>::value;
+  constexpr int NA = SPLIT_W ? 2 : 3;  // arrays of type T in a staged row
   const int ROW = 3 * DKP + p.cols;
   if (p.vec_rkw) {
     constexpr int CPR = DKP / EPC;  // copies an array row
-    const int total = tn * 3 * CPR;
+    const int total = tn * NA * CPR;
     for (int i = threadIdx.x; i < total; i += blockDim.x) {
-      const int row = i / (3 * CPR);
-      const int rem = i - row * 3 * CPR;
+      const int row = i / (NA * CPR);
+      const int rem = i - row * NA * CPR;
       const int arr = rem / CPR;
       const int e0 = (rem - arr * CPR) * EPC;
-      const T* src = (arr == 0 ? rb : arr == 1 ? kb : wb) + (long long)(t0 + row) * srow;
+      const T* src = (arr == 0 ? rb : arr == 1 ? kb : reinterpret_cast<const T*>(wb)) +
+                     (long long)(t0 + row) * srow;
       const int valid = min(max(p.dk - e0, 0), EPC);
       cp_async16(dst + row * ROW + arr * DKP + e0, valid ? src + e0 : src,
                  valid * (int)sizeof(T));
     }
+    if constexpr (SPLIT_W) {
+      constexpr int WPC = 16 / (int)sizeof(TW);
+      constexpr int WPR = DKP / WPC;
+      for (int i = threadIdx.x; i < tn * WPR; i += blockDim.x) {
+        const int row = i / WPR;
+        const int e0 = (i - row * WPR) * WPC;
+        const TW* src = wb + (long long)(t0 + row) * srow;
+        const int valid = min(max(p.dk - e0, 0), WPC);
+        cp_async16(wdst + row * DKP + e0, valid ? src + e0 : src, valid * (int)sizeof(TW));
+      }
+    }
   } else {
-    const int total = tn * 3 * DKP;
+    const int total = tn * NA * DKP;
     for (int i = threadIdx.x; i < total; i += blockDim.x) {
-      const int row = i / (3 * DKP);
-      const int rem = i - row * 3 * DKP;
+      const int row = i / (NA * DKP);
+      const int rem = i - row * NA * DKP;
       const int arr = rem / DKP;
       const int e = rem - arr * DKP;
-      const T* src = (arr == 0 ? rb : arr == 1 ? kb : wb) + (long long)(t0 + row) * srow;
+      const T* src = (arr == 0 ? rb : arr == 1 ? kb : reinterpret_cast<const T*>(wb)) +
+                     (long long)(t0 + row) * srow;
       dst[row * ROW + rem] = e < p.dk ? src[e] : from_f32<T>(0.f);
+    }
+    if constexpr (SPLIT_W) {
+      for (int i = threadIdx.x; i < tn * DKP; i += blockDim.x) {
+        const int row = i / DKP;
+        const int e = i - row * DKP;
+        wdst[i] = e < p.dk ? wb[(long long)(t0 + row) * srow + e] : TW(0.f);
+      }
     }
   }
   if (p.vec_v) {
@@ -159,6 +195,31 @@ __device__ __forceinline__ void widen(const __nv_bfloat16* src, float* dst, int 
   const uint4* s = reinterpret_cast<const uint4*>(src);
   float4* d = reinterpret_cast<float4*>(dst);
   for (int i = threadIdx.x; i < n / 8; i += blockDim.x) {
+    const uint4 x = s[i];
+    d[2 * i] = make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
+                           __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
+    d[2 * i + 1] = make_float4(__uint_as_float(x.z << 16), __uint_as_float(x.z & 0xffff0000u),
+                               __uint_as_float(x.w << 16), __uint_as_float(x.w & 0xffff0000u));
+  }
+}
+
+// The same over rows of ROW elements, each row's w (elements 2 DKP .. 3 DKP)
+// copied from the f32 staging wsrc[row][DKP] instead: every 8-element group
+// lies in one array, since DKP and ROW are multiples of 8.
+template <int DKP>
+__device__ __forceinline__ void widen_w32(const __nv_bfloat16* src, const float* wsrc,
+                                          float* dst, int n, int ROW) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int i = threadIdx.x; i < n / 8; i += blockDim.x) {
+    const int row = (8 * i) / ROW;
+    const int pos = 8 * i - row * ROW - 2 * DKP;
+    if (pos >= 0 && pos < DKP) {
+      const float4* w4 = reinterpret_cast<const float4*>(wsrc + row * DKP + pos);
+      d[2 * i] = w4[0];
+      d[2 * i + 1] = w4[1];
+      continue;
+    }
     const uint4 x = s[i];
     d[2 * i] = make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xffff0000u),
                            __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xffff0000u));
@@ -206,20 +267,26 @@ __device__ __forceinline__ void elem(float r, float k, float w, float u, float v
   s = fmaf(w, s, t);
 }
 
-template <typename T, int DKP, int L>
-__global__ void __launch_bounds__(MAX_THREADS) gla_kernel(const GlaParams p) {
+// The scan of one block: r, k, v, y in T, w in TW (T, or f32 beside bf16);
+// STORE: the state after the last token goes to p.state where it is set.
+template <typename T, typename TW, int DKP, int L, bool STORE>
+__device__ __forceinline__ void scan_block(const GlaParams& p) {
   constexpr int NS = DKP / L;               // rows of S a lane keeps
   constexpr int NQ = NS / 4;
   constexpr int NY = CT >= L ? CT / L : 1;  // columns a lane holds after the reduction
   constexpr int DUP = L > CT ? L / CT : 1;  // lanes that hold the same columns
   constexpr bool WIDEN = sizeof(T) == 2;
+  constexpr bool SPLIT_W = !std::is_same<T, TW>::value;
   static_assert(NS % 4 == 0, "a lane keeps whole 16-byte words of a row");
+  static_assert(!SPLIT_W || (WIDEN && std::is_same<TW, float>::value),
+                "w apart from r, k, v only as f32 beside bf16");
   extern __shared__ float4 smem4[];
   const int ROW = 3 * DKP + p.cols;  // r, k, w, then the block's columns of v
   // f32: two buffers [2][chunk][ROW]; bf16: the widened copy [chunk][ROW],
-  // then the staged bf16 [chunk][ROW]
+  // then the staged bf16 [chunk][ROW] (and, w in f32, its staging [chunk][DKP])
   float* fbuf = reinterpret_cast<float*>(smem4);
   T* raw = reinterpret_cast<T*>(fbuf + (size_t)p.chunk * ROW);
+  TW* wraw = SPLIT_W ? reinterpret_cast<TW*>(raw + (size_t)p.chunk * ROW) : nullptr;
 
   const int tid = threadIdx.x;
   const int lane = tid % L;
@@ -237,7 +304,7 @@ __global__ void __launch_bounds__(MAX_THREADS) gla_kernel(const GlaParams p) {
   const long long bh = (long long)b * p.S * p.H + h;
   const T* rb = reinterpret_cast<const T*>(p.r) + bh * p.dk;
   const T* kb = reinterpret_cast<const T*>(p.k) + bh * p.dk;
-  const T* wb = reinterpret_cast<const T*>(p.w) + bh * p.dk;
+  const TW* wb = reinterpret_cast<const TW*>(p.w) + bh * p.dk;
   const T* vb = reinterpret_cast<const T*>(p.v) + bh * p.dv + col0;
   T* yb = reinterpret_cast<T*>(p.y) + bh * p.dv + col0;
 
@@ -253,8 +320,8 @@ __global__ void __launch_bounds__(MAX_THREADS) gla_kernel(const GlaParams p) {
     }
 
   const int nch = (p.S + p.chunk - 1) / p.chunk;
-  stage<T, DKP>(p, rb, kb, wb, vb, srow, vrow, ncols, 0, min(p.chunk, p.S),
-                WIDEN ? raw : (T*)fbuf);
+  stage<T, TW, DKP>(p, rb, kb, wb, vb, srow, vrow, ncols, 0, min(p.chunk, p.S),
+                    WIDEN ? raw : (T*)fbuf, wraw);
   cp_async_commit();
 
   for (int ch = 0; ch < nch; ++ch) {
@@ -263,7 +330,11 @@ __global__ void __launch_bounds__(MAX_THREADS) gla_kernel(const GlaParams p) {
     cp_async_wait_all();
     __syncthreads();  // chunk ch is staged, and every thread is done with ch - 1
     const float* cur;
-    if constexpr (WIDEN) {
+    if constexpr (SPLIT_W) {
+      widen_w32<DKP>(reinterpret_cast<const __nv_bfloat16*>(raw), wraw, fbuf, tn * ROW, ROW);
+      __syncthreads();  // widened; the staging buffers are free
+      cur = fbuf;
+    } else if constexpr (WIDEN) {
       widen(reinterpret_cast<const __nv_bfloat16*>(raw), fbuf, tn * ROW);
       __syncthreads();  // widened; the staging buffer is free
       cur = fbuf;
@@ -272,8 +343,8 @@ __global__ void __launch_bounds__(MAX_THREADS) gla_kernel(const GlaParams p) {
     }
     if (ch + 1 < nch) {  // chunk ch + 1 is copied while chunk ch is computed
       T* dst = WIDEN ? raw : (T*)(fbuf + (size_t)((ch + 1) & 1) * p.chunk * ROW);
-      stage<T, DKP>(p, rb, kb, wb, vb, srow, vrow, ncols, t0 + p.chunk,
-                    min(p.chunk, p.S - t0 - p.chunk), dst);
+      stage<T, TW, DKP>(p, rb, kb, wb, vb, srow, vrow, ncols, t0 + p.chunk,
+                        min(p.chunk, p.S - t0 - p.chunk), dst, wraw);
     }
     cp_async_commit();
 
@@ -330,21 +401,53 @@ __global__ void __launch_bounds__(MAX_THREADS) gla_kernel(const GlaParams p) {
       }
     }
   }
+  if constexpr (STORE) {
+    // the state after the last token: each value is kept by one thread (its
+    // rows by the lane, its columns by the column group), so it is stored once
+    if (p.state != nullptr) {
+      float* sb = p.state + ((long long)b * p.H + h) * p.dk * p.dv + col0;
+#pragma unroll
+      for (int m = 0; m < NQ; ++m)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = 4 * (L * m + lane) + q;
+#pragma unroll
+          for (int j = 0; j < CT; ++j)
+            if (i < p.dk && cg * CT + j < ncols)
+              sb[(long long)i * p.dv + cg * CT + j] = st[4 * m + q][j];
+        }
+    }
+  }
+}
+
+// The training forward: r, k, v, w in one type, y only.
+template <typename T, int DKP, int L>
+__global__ void __launch_bounds__(MAX_THREADS) gla_kernel(const GlaParams p) {
+  scan_block<T, T, DKP, L, false>(p);
+}
+
+// The f32 decay beside r, k, v in T, and the state after the last token
+// where p.state is set (the served prefill).
+template <typename T, int DKP, int L>
+__global__ void __launch_bounds__(MAX_THREADS) gla_state_kernel(const GlaParams p) {
+  scan_block<T, float, DKP, L, true>(p);
 }
 
 template <typename T, int DKP>
-size_t smem_bytes(int chunk, int cols) {
-  // f32: two buffers; bf16: the fp32 copy and one bf16 buffer
-  return (size_t)chunk * (3 * DKP + cols) * (sizeof(T) == 2 ? 4 + 2 : 2 * 4);
+size_t smem_bytes(int chunk, int cols, bool w32) {
+  // f32: two buffers; bf16: the fp32 copy and one bf16 buffer (and an f32 w's)
+  const size_t w = sizeof(T) == 2 && w32 ? (size_t)chunk * DKP * 4 : 0;
+  return (size_t)chunk * (3 * DKP + cols) * (sizeof(T) == 2 ? 4 + 2 : 2 * 4) + w;
 }
 
-template <typename T, int DKP, int L>
+// STATE: gla_state_kernel (an f32 w; the state stored where p.state is set)
+template <typename T, int DKP, int L, bool STATE>
 cudaError_t launch(const GlaParams& p, int B, cudaStream_t stream, int* resident) {
   const int threads = (p.cols / CT * L + 31) / 32 * 32;
   if (p.cols < 8 || p.cols % 8 != 0 || threads > MAX_THREADS || p.H > 65535 || B > 65535)
     return cudaErrorInvalidValue;
-  auto kern = gla_kernel<T, DKP, L>;
-  const size_t smem = smem_bytes<T, DKP>(p.chunk, p.cols);
+  auto kern = STATE ? gla_state_kernel<T, DKP, L> : gla_kernel<T, DKP, L>;
+  const size_t smem = smem_bytes<T, DKP>(p.chunk, p.cols, STATE);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   // all of the SM's shared memory, so that as many blocks as fit are resident
   cudaError_t e =
@@ -362,46 +465,58 @@ cudaError_t launch(const GlaParams& p, int B, cudaStream_t stream, int* resident
 }
 
 // the lane counts instantiated for a padded key dim: 4 or 8 rows a lane
-template <typename T, int DKP>
+template <typename T, int DKP, bool STATE>
 cudaError_t launch_lanes(const GlaParams& p, int B, int lanes, cudaStream_t stream,
                          int* resident) {
-  if (lanes * 4 == DKP) return launch<T, DKP, (DKP / 4 > 0 ? DKP / 4 : 1)>(p, B, stream, resident);
-  if (lanes * 8 == DKP) return launch<T, DKP, (DKP / 8 > 0 ? DKP / 8 : 1)>(p, B, stream, resident);
+  if (lanes * 4 == DKP)
+    return launch<T, DKP, (DKP / 4 > 0 ? DKP / 4 : 1), STATE>(p, B, stream, resident);
+  if (lanes * 8 == DKP)
+    return launch<T, DKP, (DKP / 8 > 0 ? DKP / 8 : 1), STATE>(p, B, stream, resident);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, bool STATE>
 cudaError_t launch_dk(const GlaParams& p, int B, int lanes, cudaStream_t stream,
                       int* resident) {
-  if (p.dk <= 8) return launch_lanes<T, 8>(p, B, lanes, stream, resident);
-  if (p.dk <= 16) return launch_lanes<T, 16>(p, B, lanes, stream, resident);
-  if (p.dk <= 32) return launch_lanes<T, 32>(p, B, lanes, stream, resident);
-  if (p.dk <= 64) return launch_lanes<T, 64>(p, B, lanes, stream, resident);
-  if (p.dk <= 128) return launch_lanes<T, 128>(p, B, lanes, stream, resident);
+  if (p.dk <= 8) return launch_lanes<T, 8, STATE>(p, B, lanes, stream, resident);
+  if (p.dk <= 16) return launch_lanes<T, 16, STATE>(p, B, lanes, stream, resident);
+  if (p.dk <= 32) return launch_lanes<T, 32, STATE>(p, B, lanes, stream, resident);
+  if (p.dk <= 64) return launch_lanes<T, 64, STATE>(p, B, lanes, stream, resident);
+  if (p.dk <= 128) return launch_lanes<T, 128, STATE>(p, B, lanes, stream, resident);
   return cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
-// dtype: 0 = float32, 1 = bfloat16 (r, k, v, w and y); u is float32.  Every
+// dtype: 0 = float32, 1 = bfloat16 (r, k, v and y; w too unless state_kernel);
+// u is float32.  state_kernel: gla_state_kernel, w in float32, the state
+// after the last token stored into `state` where it is not null.  Every
 // tensor is contiguous.  chunk: steps of r/k/w staged in shared memory at a
 // time; lanes: lanes a column of the state is split over (dk padded / lanes
 // in {4, 8}); cols: columns of the state a block owns (a multiple of 8).  Returns the
 // cudaError_t of the launch (0 = launched).
 int run(const void* r, const void* k, const void* v, const void* w, const void* u, void* y,
-        int dtype, int B, int S, int H, int dk, int dv, int chunk, int lanes, int cols,
-        void* stream, int* resident) {
+        void* state, int dtype, int state_kernel, int B, int S, int H, int dk, int dv,
+        int chunk, int lanes, int cols, void* stream, int* resident) {
   if (dk < 1 || chunk < 1 || lanes < 1 || cols < 1) return (int)cudaErrorInvalidValue;
   GlaParams p;
   p.r = r; p.k = k; p.v = v; p.w = w; p.u = reinterpret_cast<const float*>(u); p.y = y;
+  p.state = reinterpret_cast<float*>(state);
   p.S = S; p.H = H; p.dk = dk; p.dv = dv; p.chunk = chunk; p.cols = cols;
   const int esz = dtype == 1 ? 2 : 4;
-  p.vec_rkw = aligned16(r) && aligned16(k) && aligned16(w) && (dk * esz) % 16 == 0;
+  const int wsz = state_kernel ? 4 : esz;
+  p.vec_rkw = aligned16(r) && aligned16(k) && aligned16(w) && (dk * esz) % 16 == 0 &&
+              (dk * wsz) % 16 == 0;
   p.vec_v = aligned16(v) && (dv * esz) % 16 == 0;  // cols * esz is a multiple of 16
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == 0) e = launch_dk<float>(p, B, lanes, st, resident);
-  else if (dtype == 1) e = launch_dk<__nv_bfloat16>(p, B, lanes, st, resident);
+  if (state_kernel) {
+    if (dtype == 0) e = launch_dk<float, true>(p, B, lanes, st, resident);
+    else if (dtype == 1) e = launch_dk<__nv_bfloat16, true>(p, B, lanes, st, resident);
+  } else {
+    if (dtype == 0) e = launch_dk<float, false>(p, B, lanes, st, resident);
+    else if (dtype == 1) e = launch_dk<__nv_bfloat16, false>(p, B, lanes, st, resident);
+  }
   return (int)e;
 }
 
@@ -416,13 +531,27 @@ extern "C" int gla_scan_fwd(const void* r, const void* k, const void* v, const v
                             const void* u, void* y, int dtype, int B, int S, int H, int dk,
                             int dv, int chunk, int lanes, int cols, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || dv <= 0) return (int)cudaSuccess;  // nothing to compute
-  return run(r, k, v, w, u, y, dtype, B, S, H, dk, dv, chunk, lanes, cols, stream, nullptr);
+  return run(r, k, v, w, u, y, nullptr, dtype, 0, B, S, H, dk, dv, chunk, lanes, cols, stream,
+             nullptr);
 }
 
-// Blocks of such a launch resident on one SM, into *resident; launches
-// nothing.  Returns the cudaError_t of the query.
-extern "C" int gla_scan_occupancy(int dtype, int dk, int chunk, int lanes, int cols,
-                                  int* resident) {
-  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dtype, 1, 1, 1, dk, cols,
-             chunk, lanes, cols, nullptr, resident);
+// gla_state_kernel: as gla_scan_fwd, but w is float32 whatever dtype (r, k,
+// v and y), and where `state` is not null the state after the last token is
+// stored there, (B, H, dk, dv) float32.
+extern "C" int gla_scan_state_fwd(const void* r, const void* k, const void* v, const void* w,
+                                  const void* u, void* y, void* state, int dtype, int B, int S,
+                                  int H, int dk, int dv, int chunk, int lanes, int cols,
+                                  void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || dv <= 0) return (int)cudaSuccess;  // nothing to compute
+  return run(r, k, v, w, u, y, state, dtype, 1, B, S, H, dk, dv, chunk, lanes, cols, stream,
+             nullptr);
+}
+
+// Blocks of such a launch (gla_state_kernel where state_kernel is set)
+// resident on one SM, into *resident; launches nothing.  Returns the
+// cudaError_t of the query.
+extern "C" int gla_scan_occupancy(int dtype, int state_kernel, int dk, int chunk, int lanes,
+                                  int cols, int* resident) {
+  return run(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dtype, state_kernel,
+             1, 1, 1, dk, cols, chunk, lanes, cols, nullptr, resident);
 }

@@ -9,6 +9,14 @@ the launch.
 ``gla_scan_plain`` is the same per-step recurrence in plain PyTorch: the
 CPU path, and what the kernel is held against on the card.
 
+The decay ``w`` may be float32 beside bfloat16 ``r``, ``k``, ``v`` (the
+kernel ``gla_state_kernel``): a decay near 1 does not survive bf16
+(0.9975 becomes 0.9961, and the error compounds along the sequence).
+``gla_scan_state`` is that kernel with the state after the last token
+stored, f32, into a buffer the caller hands in (the served prefill's
+cache); its launches count in ``gla_scan_state.launches``, apart from the
+training forward's ``gla_scan.launches``.
+
 The knob is the reference's ``chunk``: here the steps of ``r``/``k``/``w``
 staged in shared memory at a time (double-buffered).  What the wrapper
 chooses itself, from the shapes and the SM count (``split``), is how the
@@ -46,7 +54,9 @@ SMEM_PER_BLOCK_RESERVED = 1024
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_STATE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _FN = None
+_STATE_FN = None
 
 #: the gradient's kernels take dk and dv up to this; a tile at most this many tokens
 BWD_MAX_DIM = 128
@@ -146,13 +156,37 @@ def effective_config(chunk: int, S: int, dk: int, dv: int) -> dict:
                                 cap=max(S, 1))}
 
 
-def gla_scan_plain(r, k, v, w, u, *, lanes: int = 1) -> torch.Tensor:
+def state_chunk(B: int, H: int, dk: int, dv: int, sms: int, chunk: int) -> int:
+    """The staging depth ``gla_scan_state`` runs with: of the powers of two
+    up to ``chunk`` (the request, as ``effective_config`` clamps it), the
+    one whose split (``split``) puts its blocks on the SMs in the fewest
+    waves (``resident`` blocks an SM), the deepest among those.  A served
+    prefill has many more blocks than SMs, and a shallower staging holds
+    more of them on an SM: on an H100 at B=64, S=2,048, H=40, dk=dv=64,
+    bf16, one call took 14.06 ms at 128 (one block an SM, 39 waves), 5.92
+    at 16, 5.82 at 32 (PERF.md).  The training forward (``gla_scan``) keeps
+    the request as it is."""
+    best = None
+    c = chunk
+    while c >= 1:
+        if feasible({"chunk": c}, {"dk": dk, "dv": dv}):
+            sp = split(B, H, dk, dv, sms, c)
+            waves = -(-sp["blocks"] // (max(1, resident(c, dk, sp["cols"], sp["lanes"])) * sms))
+            if best is None or waves < best[0]:
+                best = (waves, c)
+        c //= 2
+    return chunk if best is None else best[1]
+
+
+def gla_scan_plain(r, k, v, w, u, *, lanes: int = 1, final_state: bool = False):
     """The kernel's recurrence in plain PyTorch, one step at a time, zero
     initial state, fp32 throughout, rounded once to ``r.dtype``; the output
     of a step uses the state before its update.  With ``lanes > 1`` the key
     dim is cut as the kernel cuts it (``lane_index``): each lane's partial
     ``sum_i r_i (S_ij + u_i k_i v_j)`` over its rows, summed as the kernel
-    sums a thread's ``THREAD_COLS`` columns (``reduce_lanes``)."""
+    sums a thread's ``THREAD_COLS`` columns (``reduce_lanes``).  With
+    ``final_state`` it returns ``(y, state)``, the state after the last
+    token (B, H, dk, dv) in f32, as ``gla_scan_state`` stores it."""
     B, S, H, dk = r.shape
     dv = v.shape[-1]
     rf, kf, vf, wf, uf = (a.float() for a in (r, k, v, w, u))
@@ -175,6 +209,8 @@ def gla_scan_plain(r, k, v, w, u, *, lanes: int = 1) -> torch.Tensor:
             bonus = (rt * uf * kt).sum(dim=-1)
             y[:, t] = (rt[..., None] * st).sum(dim=2) + bonus[..., None] * vt
         st = wf[:, t, :, :, None] * st + kt[..., None] * vt[:, :, None, :]
+    if final_state:
+        return y.to(r.dtype), st[:, :, :dk]
     return y.to(r.dtype)
 
 
@@ -188,15 +224,20 @@ def _check_shapes(what, r, k, v, w, u, dy=None):
                          + ("" if dy is None else f", {tuple(dy.shape)}"))
 
 
-def _check_card(what, r, *rest):
+def _check_card(what, r, *rest, w32: bool = False):
     """A CUDA launch's tensors (``rest``: k, v, w, u and maybe dy) lie on one
-    card, and all but ``u`` share float32 or bfloat16."""
+    card; r, k, v (and dy) share float32 or bfloat16, and w is of their
+    type or float32 (only float32 where ``w32``)."""
     if r.device.type != "cuda":
         raise RuntimeError(f"{what} kernel: unsupported device {r.device}")
-    typed = [r, *rest[:3], *rest[4:]]
+    typed = [r, *rest[:2], *rest[4:]]
+    w = rest[2]
     if r.dtype not in _DTYPE_CODE or any(t.dtype != r.dtype for t in typed):
-        raise TypeError(f"{what} kernel: r, k, v, w{', dy' if len(rest) > 4 else ''} must share "
+        raise TypeError(f"{what} kernel: r, k, v{', dy' if len(rest) > 4 else ''} must share "
                         f"float32 or bfloat16, got {', '.join(str(t.dtype) for t in typed)}")
+    if w.dtype != torch.float32 and (w32 or w.dtype != r.dtype):
+        raise TypeError(f"{what} kernel: w must be float32{'' if w32 else ' or of the type of r'}, "
+                        f"got {w.dtype} beside {r.dtype}")
     if any(t.device != r.device for t in rest):
         raise RuntimeError(f"{what} kernel: tensors lie on different devices")
 
@@ -211,27 +252,47 @@ def _fn():
     return _FN
 
 
-def resident_blocks(dtype, dk: int, chunk: int, lanes: int, cols: int) -> int:
+def _state_fn():
+    global _STATE_FN
+    if _STATE_FN is None:
+        fn = _build.load("gla_scan").gla_scan_state_fwd
+        fn.argtypes = _STATE_ARGTYPES
+        fn.restype = ctypes.c_int
+        _STATE_FN = fn
+    return _STATE_FN
+
+
+def resident_blocks(dtype, dk: int, chunk: int, lanes: int, cols: int, *,
+                    state_kernel: bool = False) -> int:
     """Blocks of a launch with this split that one SM holds at once (CUDA's
-    occupancy query for the instantiated kernel; launches nothing)."""
+    occupancy query for the instantiated kernel, ``gla_state_kernel`` where
+    ``state_kernel``; launches nothing)."""
     fn = _build.load("gla_scan").gla_scan_occupancy
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     out = ctypes.c_int(0)
-    _build.check(fn(_DTYPE_CODE[dtype], dk, chunk, lanes, cols, ctypes.byref(out)),
-                 "gla_scan occupancy")
+    _build.check(fn(_DTYPE_CODE[dtype], int(state_kernel), dk, chunk, lanes, cols,
+                    ctypes.byref(out)), "gla_scan occupancy")
     return out.value
 
 
-def _launch(r, k, v, w, u, cfg: dict, lanes: int, cols: int, stream: int) -> torch.Tensor:
+def _launch(r, k, v, w, u, cfg: dict, lanes: int, cols: int, stream: int,
+            state=None) -> torch.Tensor:
     """Allocate the output and launch the kernel on ``stream`` with the
-    given split (``lanes`` a column, ``cols`` columns a block)."""
+    given split (``lanes`` a column, ``cols`` columns a block):
+    ``gla_state_kernel`` where ``w`` is float32 beside bfloat16 or a
+    ``state`` buffer is given (the state after the last token goes there),
+    else ``gla_kernel``."""
     r, k, v, w = (t.contiguous() for t in (r, k, v, w))
     u = u.float().contiguous()
     B, S, H, dk = r.shape
     y = torch.empty_like(v)
-    err = _fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                y.data_ptr(), _DTYPE_CODE[r.dtype], B, S, H, dk, v.shape[-1],
-                cfg["chunk"], lanes, cols, stream)
+    args = (_DTYPE_CODE[r.dtype], B, S, H, dk, v.shape[-1], cfg["chunk"], lanes, cols, stream)
+    if state is None and w.dtype == r.dtype:
+        err = _fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                    y.data_ptr(), *args)
+    else:
+        err = _state_fn()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                          y.data_ptr(), None if state is None else state.data_ptr(), *args)
     _build.check(err, "gla_scan")
     return y
 
@@ -247,9 +308,11 @@ def gla_scan(
 ) -> torch.Tensor:
     """Returns y (B, S, H, dv) in ``r.dtype``.  Zero initial state.  CUDA
     tensors go through the kernel (or raise); CPU tensors take
-    ``gla_scan_plain``.  On the card the wrapper chooses the split
-    (``split``: lanes a column, columns a block, from the shapes and the SM
-    count) and records it in ``gla_scan.last_split``."""
+    ``gla_scan_plain``.  ``w`` is of ``r``'s type or float32 (then the
+    launch is ``gla_state_kernel``'s, storing no state).  On the card the
+    wrapper chooses the split (``split``: lanes a column, columns a block,
+    from the shapes and the SM count) and records it in
+    ``gla_scan.last_split``."""
     _check_shapes("gla_scan", r, k, v, w, u)
     B, S, H, dk = r.shape
     cfg = effective_config(chunk, S, dk, v.shape[-1])
@@ -273,6 +336,58 @@ gla_scan.launches = 0
 gla_scan.last_config = None
 #: the split the last call launched (``split``); None on the CPU path
 gla_scan.last_split = None
+
+
+def gla_scan_state(
+    r: torch.Tensor,  # (B, S, H, dk)
+    k: torch.Tensor,  # (B, S, H, dk)
+    v: torch.Tensor,  # (B, S, H, dv)
+    w: torch.Tensor,  # (B, S, H, dk) decay in (0, 1), float32
+    u: torch.Tensor,  # (H, dk)
+    state: torch.Tensor,  # (B, H, dk, dv) float32, written
+    *,
+    chunk: int = 128,
+) -> torch.Tensor:
+    """``gla_scan`` with the state after the last token written into
+    ``state`` (contiguous float32, e.g. the served cache's ``S``; no copy
+    follows on the card).  Zero initial state; ``w`` float32 beside ``r``,
+    ``k``, ``v`` in float32 or bfloat16.  Returns y in ``r.dtype``.  CUDA
+    tensors launch ``gla_state_kernel`` (counted in
+    ``gla_scan_state.launches``) at the staging depth ``state_chunk``
+    picks, at most ``chunk``, or raise; CPU tensors take
+    ``gla_scan_plain(..., final_state=True)``."""
+    _check_shapes("gla_scan_state", r, k, v, w, u)
+    B, S, H, dk = r.shape
+    dv = v.shape[-1]
+    if state.shape != (B, H, dk, dv) or state.dtype != torch.float32 \
+            or not state.is_contiguous():
+        raise ValueError(f"gla_scan_state: state must be contiguous float32 {(B, H, dk, dv)}, "
+                         f"got {state.dtype} {tuple(state.shape)}")
+    cfg = effective_config(chunk, S, dk, dv)
+    if r.device.type == "cpu":
+        gla_scan_state.last_config, gla_scan_state.last_split = cfg, None
+        y, st = gla_scan_plain(r, k, v, w, u, final_state=True)
+        state.copy_(st)
+        return y
+    _check_card("gla_scan_state", r, k, v, w, u, w32=True)
+    if state.device != r.device:
+        raise RuntimeError("gla_scan_state kernel: the state lies on another device")
+    sms = sm_count(r.device)
+    cfg = {"chunk": state_chunk(B, H, dk, dv, sms, cfg["chunk"])}
+    gla_scan_state.last_config = cfg
+    sp = split(B, H, dk, dv, sms, cfg["chunk"])
+    gla_scan_state.last_split = sp
+    with torch.cuda.device(r.device):
+        y = _launch(r, k, v, w, u, cfg, sp["lanes"], sp["cols"],
+                    torch.cuda.current_stream().cuda_stream, state=state)
+    gla_scan_state.launches += 1
+    return y
+
+
+#: launches that stored the final state since the count was last set to 0
+gla_scan_state.launches = 0
+gla_scan_state.last_config = None
+gla_scan_state.last_split = None
 
 
 # ---------------------------------------------------------------------------
@@ -423,10 +538,13 @@ def gla_scan_bwd(r, k, v, w, u, dy):
     _check_card("gla_scan_bwd", r, k, v, w, u, dy)
     if dk > BWD_MAX_DIM or dv > BWD_MAX_DIM:
         raise ValueError(f"gla_scan_bwd kernel: dk={dk}, dv={dv}; at most {BWD_MAX_DIM} each")
+    # an f32 decay beside bf16 operands: the kernels run in f32 throughout,
+    # the gradients go back in each input's type
+    x = [t.to(w.dtype) for t in (r, k, v, w, u, dy)]
     with torch.cuda.device(r.device):
-        out = _launch_bwd(r, k, v, w, u, dy, chunk, torch.cuda.current_stream().cuda_stream)
+        out = _launch_bwd(*x, chunk, torch.cuda.current_stream().cuda_stream)
     gla_scan_bwd.launches += 1
-    return (*out[:4], out[4].to(u.dtype))
+    return (*(g.to(t.dtype) for g, t in zip(out[:4], (r, k, v, w))), out[4].to(u.dtype))
 
 
 #: calls that launched the gradient's kernels since the count was last set to 0

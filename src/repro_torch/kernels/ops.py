@@ -8,7 +8,10 @@
   * ``"chunked"``— chunked oracle form.
 
 The RWKV-6 scan (K5) pairs its kernel forward with its own gradient
-kernels (``_GlaScan``, ``gla_scan.gla_scan_bwd``).  The other kernels'
+kernels (``_GlaScan``, ``gla_scan.gla_scan_bwd``).  It takes its decay in
+float32 beside bfloat16 operands, and on request (``state=``) writes the
+state after the last token into the caller's buffer: the served prefill's
+cache (``gla_scan.gla_scan_state``).  The other kernels'
 forward passes pair with an oracle-recompute backward (``_ref_vjp``): the
 remat-style pairing that keeps the graph differentiable while the forward
 hot-spot runs the hand-written kernel.
@@ -282,19 +285,38 @@ def gla_scan(
     impl: str = "chunked",
     chunk: int = 64,
     db=None,
+    state: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """RWKV-6 wkv scan, zero init state.  Returns y (B,S,H,dv)."""
+    """RWKV-6 wkv scan, zero init state.  Returns y (B,S,H,dv) in ``r``'s
+    type; ``w`` may be float32 beside bfloat16 ``r``, ``k``, ``v``.  Where
+    ``state`` (B,H,dk,dv) is given, the state after the last token is
+    written into it: by the kernel itself under ``cuda``
+    (``gla_scan_state``, no gradient), copied from the oracle's under
+    ``ref`` and ``chunked``."""
     _check_impl(impl)
     if impl == "ref":
-        return ref.gla_scan_ref(r, k, v, w, u)[0]
+        y, st = ref.gla_scan_ref(r, k, v, w, u)
+        if state is not None:
+            state.copy_(st)
+        return y
     B, S, H, dk = k.shape
     chunk = _tuned(db, "gla_scan",
                    {"B": B, "S": S, "H": H, "dk": dk, "dv": v.shape[-1]},
                    {"chunk": chunk})["chunk"]
     if impl == "chunked":
-        return trace_hooks.region(
-            "krnl_gla_scan", lambda *a: ref.gla_scan_chunked_ref(*a, chunk=chunk)[0],
-            r, k, v, w, u)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (r, k, v, w, u)):
+        def scan(*a):
+            y, st = ref.gla_scan_chunked_ref(*a, chunk=chunk)
+            if state is not None:
+                state.copy_(st)
+            return y
+
+        return trace_hooks.region("krnl_gla_scan", scan, r, k, v, w, u)
+    grad = torch.is_grad_enabled() and any(a.requires_grad for a in (r, k, v, w, u))
+    if state is not None:
+        if grad:
+            raise ValueError("gla_scan: a final state is written without a gradient "
+                             "(call it under torch.no_grad())")
+        return _gla_mod.gla_scan_state(r, k, v, w, u, state, chunk=chunk)
+    if grad:
         return _GlaScan.apply(chunk, r, k, v, w, u)
     return _gla_mod.gla_scan(r, k, v, w, u, chunk=chunk)

@@ -48,8 +48,9 @@ from repro_torch.serve.serve_step import (greedy_sample, make_decode_step,
 
 def runtime(on_card: bool, dtype: str) -> Runtime:
     """The served runtime: on the card every kernel of the path (attention,
-    decode attention, RMSNorm, and the scans in a ``full`` forward); on the
-    CPU the oracles."""
+    decode attention, RMSNorm, the scans in a ``full`` forward, and K5 in
+    RWKV's prefill, where it also writes the state); on the CPU the
+    oracles."""
     impl = "cuda" if on_card else "ref"
     return Runtime(compute_dtype=dtype, attn_impl=impl,
                    scan_impl="cuda" if on_card else "chunked")

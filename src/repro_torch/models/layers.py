@@ -41,7 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as _sharding
 from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import gla_scan_chunked_ref, ssm_scan_chunked_ref
+from repro_torch.kernels.ref import ssm_scan_chunked_ref
 from repro_torch.models.params import P, dense_init, ones_init, zeros_init
 from repro_torch.models.runtime import Runtime
 
@@ -955,8 +955,15 @@ def rwkv_tmix_apply(
     cache: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """``full`` runs the wkv scan through ``ops.gla_scan`` (the K5 kernel
-    under ``scan_impl="cuda"``); ``prefill`` takes the chunked oracle, which
-    also returns the final state; ``decode`` is one recurrence step."""
+    under ``scan_impl="cuda"``); ``prefill`` does the same and has the scan
+    write the state after the last token into ``cache["S"]`` (on the card
+    the kernel stores it there itself); ``decode`` is one recurrence step.
+
+    The decay ``w`` and the bonus ``u`` stay float32 in every mode, beside
+    ``r``, ``k``, ``v`` in the compute dtype: a decay near 1 rounded to
+    bf16 (0.9975 becomes 0.9961) compounds over a prompt into the state.
+    The reference package rounds them to the compute dtype in ``full`` and
+    ``prefill``; in float32 the two agree bit for bit."""
     rc = cfg.rwkv
     B, S, D = x.shape
     hs = rc.head_size
@@ -984,15 +991,12 @@ def rwkv_tmix_apply(
     u = p["u"].float()
 
     new_cache = None
-    if mode == "full":
-        y = ops.gla_scan(r, k, v, w.to(r.dtype), u.to(r.dtype),
-                         impl=rt.scan_impl, chunk=rt.scan_chunk, db=rt.tuning_db)
-    elif mode == "prefill":
-        y, S_final = gla_scan_chunked_ref(r, k, v, w.to(r.dtype), u.to(r.dtype),
-                                          chunk=rt.scan_chunk)
-        cache["x_tmix"].copy_(xc[:, -1])
-        cache["S"].copy_(S_final)
-        new_cache = cache
+    if mode in ("full", "prefill"):
+        y = ops.gla_scan(r, k, v, w, u, impl=rt.scan_impl, chunk=rt.scan_chunk,
+                         db=rt.tuning_db, state=cache["S"] if mode == "prefill" else None)
+        if mode == "prefill":
+            cache["x_tmix"].copy_(xc[:, -1])
+            new_cache = cache
     else:  # decode: one recurrence step
         Sst = cache["S"].float()  # (B, H, hs, hs)
         rt_, kt, vt = (a[:, 0].float() for a in (r, k, v))

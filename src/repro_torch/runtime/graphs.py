@@ -43,14 +43,17 @@ from repro_torch.runtime import trace_hooks
 
 def kernel_counters() -> list:
     """The kernel wrappers, each counting its launches in ``launches``
-    (``gla_scan_bwd``: the calls of K5's gradient kernels)."""
+    (``gla_scan_bwd``: the calls of K5's gradient kernels;
+    ``gla_scan_state``: K5's launches that store the final state, the
+    served prefill's)."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.gla_scan import gla_scan, gla_scan_bwd
+    from repro_torch.kernels.gla_scan import gla_scan, gla_scan_bwd, gla_scan_state
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssm_scan import ssm_scan
 
-    return [rmsnorm, flash_attention, decode_attention, ssm_scan, gla_scan, gla_scan_bwd]
+    return [rmsnorm, flash_attention, decode_attention, ssm_scan, gla_scan, gla_scan_bwd,
+            gla_scan_state]
 
 
 class CountedGraph:

@@ -146,7 +146,7 @@ def test_counted_graph_restores_the_counters_when_the_capture_fails():
 def test_kernel_counters_are_the_five_wrappers():
     names = [fn.__name__ for fn in SS.kernel_counters()]
     assert names == ["rmsnorm", "flash_attention", "decode_attention", "ssm_scan", "gla_scan",
-                     "gla_scan_bwd"]
+                     "gla_scan_bwd", "gla_scan_state"]
     assert all(isinstance(fn.launches, int) for fn in SS.kernel_counters())
 
 
