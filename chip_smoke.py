@@ -297,6 +297,11 @@ ROOFLINE_LOSS_RTOL = 1e-3
 # bf16 logits, kernel path against the chunked path, and each K3 launch of a
 # decode step against its plain version: bf16 ulps of the largest |value|
 ROOFLINE_ULPS = 8
+# K3's tensor-core kernel against its emulation (decode_attention_bf16_plain):
+# bf16 ulps of each output, an output taken at no less than K3_EMU_FLOOR of
+# the largest |value| (the two sum in f32 in different orders)
+K3_EMU_ULPS = 2
+K3_EMU_FLOOR = 2.0 ** -6
 COPY_BYTES = 2 << 30             # device-to-device copy of 2 GiB
 MATMUL_N = 8192                  # bf16 matmul of 8192^3
 
@@ -367,6 +372,27 @@ def time_ms(fn, arg_sets, *, warmup=3, min_iters=20, replays=5):
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(stop) / (iters * replays), eager_ms
+
+
+def _k3_vs_emulation(what, got, q, k, v, lengths, block_kv):
+    """K3's tensor-core kernel (``got``) against its emulation on the same
+    inputs, on the card: within K3_EMU_ULPS bf16 ulps of each output (taken
+    at no less than K3_EMU_FLOOR of the largest |value|).  Returns the
+    largest distance in those ulps."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dec
+
+    emu = dec.decode_attention_bf16_plain(
+        q, k, v, lengths, block_kv=block_kv,
+        sms=torch.cuda.get_device_properties(q.device).multi_processor_count).float()
+    at = torch.maximum(emu.abs(), K3_EMU_FLOOR * emu.abs().max())
+    ulp = torch.exp2(torch.floor(torch.log2(at.clamp(min=1e-30))) - 7)
+    worst = float(((got.float() - emu).abs() / ulp).max())
+    if not worst <= K3_EMU_ULPS:
+        raise AssertionError(f"decode_attention {what}: {worst:.2f} bf16 ulps from its "
+                             f"emulation (limit {K3_EMU_ULPS})")
+    return worst
 
 
 def n_sets_for(bytes_per_call, l2_bytes=50e6, cap=48):
@@ -605,8 +631,14 @@ def phase_kernels(cx):
             torch.cuda.synchronize()
             e = check_close("decode_attention", f"{name} splits={n_splits} {c}", got, want, tol)
             # the plain version cut as the kernel cut it: the merge's arithmetic
-            check_close("decode_attention", f"{name} plain splits={n_splits}", got,
-                        dec.decode_attention_plain(q, k, v, lengths, n_splits=n_splits), tol)
+            # (the tensor-core path's: its splits, stages and P as bf16 hi + lo,
+            # within K3_EMU_ULPS of each output)
+            if dec.route(qdt, c["dh"], c["H"] // c["K"]) == "mma":
+                _k3_vs_emulation(f"{name} splits={n_splits} {c}", got, q, k, v, lengths,
+                                 c["block_kv"])
+            else:
+                check_close("decode_attention", f"{name} plain splits={n_splits}", got,
+                            dec.decode_attention_plain(q, k, v, lengths, n_splits=n_splits), tol)
             splits[n_splits] = splits.get(n_splits, 0) + 1
             if 0 in c["lengths"]:
                 b0 = c["lengths"].index(0)
@@ -696,25 +728,41 @@ def phase_kernels(cx):
     at_main["flash_attention"] = rows
 
     # decode: one step of a wave, B=8, Smax=576, every sequence at length 575;
-    # then long caches (8k, 32k rows) in bf16, and the roofline phase's
-    # decode_32k step: B=128 at a 32k cache
+    # then long caches (8k, 32k rows) in bf16, and the benchmark cell
+    # decode_32k's call: B=128 at a 32k cache, lengths 31,745-31,872
     rows = []
+    cell_lengths = torch.randint(31745, 31873, (128,), generator=torch.Generator().manual_seed(0))
     shapes = ([(8, 576, n) for n in combos] + [(8, 8192, "bf16"), (8, 32768, "bf16"),
                                                 (128, 32768, "bf16")])
     for B, Smax, name in shapes:
         qdt, kdt = combos[name]
         esz = 2 if kdt == torch.bfloat16 else 4
         length = Smax - 1
-        nbytes = 2 * B * length * K * dh * esz + 2 * B * H * dh * (2 if qdt == torch.bfloat16 else 4)
         lengths = torch.full((B,), length, dtype=torch.int32, device=dev)
+        if (B, Smax) == (128, 32768):
+            lengths = cell_lengths.to(torch.int32).to(dev)
+        live = int(lengths.sum())
+        nbytes = 2 * live * K * dh * esz + 2 * B * H * dh * (2 if qdt == torch.bfloat16 else 4)
         sets = [(rand(B, H, dh, dtype=qdt), rand(B, Smax, K, dh, dtype=kdt),
                  rand(B, Smax, K, dh, dtype=kdt), lengths) for _ in range(n_sets_for(nbytes))]
         q, k, v, _ = sets[0]
         got = dec.decode_attention(q, k, v, lengths, block_kv=512)
         cfg, n_splits = dict(dec.decode_attention.last_config), dec.decode_attention.last_splits
-        want = dec.decode_attention_plain(q, k, v, lengths)
-        e = check_close("decode_attention", f"{name} B={B} Smax={Smax} splits={n_splits}", got,
-                        want, TOL["decode_attention"]["bf16" if qdt == torch.bfloat16 else "f32"])
+        route = dec.route(qdt, dh, H // K)
+        want = torch.cat([dec.decode_attention_plain(q[i:i + 16], k[i:i + 16], v[i:i + 16],
+                                                     lengths[i:i + 16]) for i in range(0, B, 16)])
+        what = f"{name} B={B} Smax={Smax} splits={n_splits}"
+        e = check_close("decode_attention", what, got, want,
+                        TOL["decode_attention"]["bf16" if qdt == torch.bfloat16 else "f32"])
+        # the tensor-core kernel also within ROOFLINE_ULPS of the largest
+        # |value| of the plain version and K3_EMU_ULPS of each of its emulation
+        ulps = {}
+        if route == "mma":
+            ulps["vs_plain"] = e / _ulp(float(want.float().abs().max()))
+            if ulps["vs_plain"] > ROOFLINE_ULPS:
+                raise AssertionError(f"decode_attention {what}: {ulps['vs_plain']:.1f} ulps of "
+                                     "the plain version's largest |value|")
+            ulps["vs_emulation"] = _k3_vs_emulation(what, got, q, k, v, lengths, 512)
         del got, want
         ms, eager_ms = time_ms(lambda *a: dec.decode_attention(*a, block_kv=512), sets)
         block_kv_ms = {}
@@ -730,9 +778,12 @@ def phase_kernels(cx):
         lib_ms, _ = time_ms(
             lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), lib_sets)
         del lib_sets
-        flops = B * H * length * 4 * dh
+        flops = H // K * live * K * 4 * dh
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["f32" if qdt == torch.float32 else "bf16"] * 1e3
-        rows.append({"dtype": name, "shape": f"B={B} Smax={Smax} len={length} H={H} K={K} dh={dh}",
+        lens = (f"len={length}" if (B, Smax) != (128, 32768)
+                else f"len={int(lengths.min())}-{int(lengths.max())}")
+        rows.append({"dtype": name, "shape": f"B={B} Smax={Smax} {lens} H={H} K={K} dh={dh}",
+                     "route": route, "ulps": ulps,
                      "config": cfg, "splits": n_splits, "max_abs_err": e, "ms": ms,
                      "block_kv_ms": block_kv_ms,
                      "eager_ms": eager_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1249,7 +1300,7 @@ def _zero_counts(mods):
 def phase_serve(cx):
     import torch
 
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_bf16
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.launch import serve
@@ -1258,11 +1309,12 @@ def phase_serve(cx):
     cx.model = cx.params = None
     torch.cuda.empty_cache()
     mods = {"flash_attention": flash_attention, "decode_attention": decode_attention,
-            "rmsnorm": rmsnorm}
+            "decode_attention_bf16": decode_attention_bf16, "rmsnorm": rmsnorm}
     requests, gen_len, batch, layers = 16, 64, 8, 24
     waves = requests // batch
     expected = {"flash_attention": layers * waves,
                 "decode_attention": layers * (gen_len - 1) * waves,
+                "decode_attention_bf16": layers * (gen_len - 1) * waves,
                 "rmsnorm": (2 * layers + 1) * gen_len * waves}
     runs = []
     for label in ("first", "second"):
@@ -1278,7 +1330,8 @@ def phase_serve(cx):
                "flash_config": flash_attention.last_config,
                "decode_splits": decode_attention.last_splits,
                "decode_config": decode_attention.last_config}
-        if ran["flash_attention"] != "wgmma" or not ran["decode_splits"] > 1:
+        # (the counts below show the decode reached K3's tensor-core kernel)
+        if ran["flash_attention"] != "wgmma":
             raise AssertionError(f"serve: the served path did not run the redesigned kernels: {ran}")
         if counts != expected:
             raise AssertionError(f"serve: launch counts {counts} != expected {expected}: "
@@ -1753,7 +1806,7 @@ def _train_phase(cx, cfg, base_args, device):
     layers = cfg.num_layers
     per_step = {"rmsnorm": 2 * layers + 1, "flash_attention": layers,
                 "decode_attention": 0, "ssm_scan": 0, "gla_scan": 0, "gla_scan_bwd": 0,
-                "gla_scan_state": 0}
+                "gla_scan_state": 0, "decode_attention_bf16": 0}
     B, S = (int(base_args[base_args.index(f) + 1]) for f in ("--batch", "--seq"))
     common = {"phase": "train", "gpu": cx.smi, "model": cfg.name, "layers": layers,
               "d_model": cfg.d_model, "vocab": cfg.padded_vocab, "dtype": "f32",
@@ -2622,10 +2675,12 @@ def _family_serve_steps(model, params, batch, rt, mods, steps, forced=None, grap
 def _family_serve_f32(what, model, params, batch, rt, mods, tokens, counts, total):
     """The kernel path's prefill + decode again in f32 on the same weights
     and tokens: its logits, for the f32 comparison.  It must launch what the
-    bf16 run launched (``counts``); both runs' launches go into ``total``."""
+    bf16 run launched (``counts``), but for K3's tensor-core kernel, which
+    takes bf16 queries only; both runs' launches go into ``total``."""
     k32, _, c32, _ = _family_serve_steps(model, params, batch, rt, mods, FAMILY_DECODE,
                                          forced=tokens)
-    _family_expect(f"{what} f32 prefill+decode", c32, counts)
+    _family_expect(f"{what} f32 prefill+decode", c32,
+                   {ph: dict(c, decode_attention_bf16=0) for ph, c in counts.items()})
     for c in (counts, c32):
         _add_counts(total, c["prefill"])
         _add_counts(total, c["decode"])
@@ -2807,7 +2862,7 @@ def phase_families(cx):
             zero, rmsnorm=2 * cfg.num_layers + 1, flash_attention=n_attn))
         _family_expect("jamba decode", ck["decode"], dict(
             zero, rmsnorm=(2 * cfg.num_layers + 1) * FAMILY_DECODE,
-            decode_attention=n_attn * FAMILY_DECODE))
+            decode_attention=n_attn * FAMILY_DECODE, decode_attention_bf16=n_attn * FAMILY_DECODE))
         # the same prefill and decode through the compiled steps: equal bit for bit
         lg, tg, cg, fg = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods,
                                              FAMILY_DECODE, forced=tk, graphed=True)
@@ -2887,7 +2942,8 @@ def phase_families(cx):
         lk, tk, ck, _ = _family_serve_steps(model, p16, sb, rt_k["bf16"], mods, FAMILY_DECODE)
         _family_expect("whisper prefill", ck["prefill"], dict(zero, flash_attention=E + 2 * Ld))
         _family_expect("whisper decode", ck["decode"], dict(
-            zero, decode_attention=2 * Ld * FAMILY_DECODE))
+            zero, decode_attention=2 * Ld * FAMILY_DECODE,
+            decode_attention_bf16=2 * Ld * FAMILY_DECODE))
         k32 = _family_serve_f32("whisper-base", model, p16, sb, rt_k["f32"], mods, tk, ck, total)
         lo, _, _, _ = _family_serve_steps(model, p16, sb, rt_o["bf16"], mods, FAMILY_DECODE, forced=tk)
         l32, _, _, _ = _family_serve_steps(model, p16, sb, rt_o["f32"], mods, FAMILY_DECODE, forced=tk)
@@ -2895,7 +2951,8 @@ def phase_families(cx):
         del model, p16, lk, lo, l32, k32
         torch.cuda.empty_cache()
         served = _family_served("whisper-base", mods, dict(
-            zero, flash_attention=E + 2 * Ld, decode_attention=2 * Ld * 31))
+            zero, flash_attention=E + 2 * Ld, decode_attention=2 * Ld * 31,
+            decode_attention_bf16=2 * Ld * 31))
         _add_counts(total, served["launches"])
         report["whisper-base"] = {"layers": [E, Ld], "d_model": cfg.d_model,
                                   "encoder_frames": cfg.encoder_seq_len,
@@ -3780,7 +3837,8 @@ def _family_launches(cfg, remat):
     fwd = {"rmsnorm": 2 * cfg.num_layers + 1, "flash_attention": mixers.count("attn"),
            "decode_attention": 0, "ssm_scan": mixers.count("mamba"),
            "gla_scan": mixers.count("rwkv")}
-    bwd = {"gla_scan_bwd": mixers.count("rwkv"), "gla_scan_state": 0}
+    bwd = {"gla_scan_bwd": mixers.count("rwkv"), "gla_scan_state": 0,
+           "decode_attention_bf16": 0}
     if remat == "none":
         return {**fwd, **bwd}
     return {**{k: 2 * v - (k == "rmsnorm") for k, v in fwd.items()}, **bwd}

@@ -7,45 +7,75 @@
 // lengths[b] == 0.  Row order does not matter to the result, so a ring
 // buffer whose first lengths[b] slots are valid is served as it lies.
 //
-// What bounds it on this card: bytes.  Per cache row the kernel reads 2*dh
-// elements and does 4*dh*(H/K) operations, far below the card's ~300
-// operations a byte, so the least time is the cache's bytes over 3.35 TB/s
-// (0.7 us at batch 8, 576 rows, 2 kv heads of 64 in bf16).  Reaching it needs
-// enough bytes in flight on every SM, and at serving batch sizes the natural
-// grid (one block per sequence and kv head: 16 blocks at batch 8) leaves most
-// of the 132 SMs idle while each block walks the whole cache.
+// What bounds it on this card: bytes.  Per cache row a KV head gives 2*dh
+// elements and 4*dh*(H/K) operations, far below the card's ~300 operations a
+// byte, so the least time is the cache's bytes over 3.35 TB/s (0.64 ms for
+// the 2.15 GB of bf16 keys and values of 128 sequences at 31.8k rows, 2 KV
+// heads of 64).  Reaching it takes enough bytes in flight on every SM, by
+// Little's law some 40-50 KB at loaded latency, and no serial work between a
+// load and the next one.  Two paths, chosen by the wrapper from the inputs'
+// types and shapes alone (decode_attention.py: `route`):
 //
-// The design (flash-decoding, one launch):
+// decode_kernel: fp32 query (over an fp32 or bf16 cache), and bf16 at head
+// widths or groups the tensor-core path does not take.  Flash-decoding in
+// one launch:
 //  * Grid (K, B, n_splits).  Split s of sequence b takes the contiguous
 //    rows [s*r, min((s+1)*r, lengths[b])) with r = ceil(lengths[b] /
 //    n_splits): the range is derived on the device, so the host never waits
-//    for lengths, and every sequence's rows are spread over all its splits
-//    whatever its length.  A split past the length holds no row and reports
-//    m = -inf, l = 0.  The wrapper picks n_splits from shapes alone (split_count in
-//    decode_attention.py: up to two blocks per SM, so one wave, and at least
-//    one trip of block_kv rows a split).
+//    for lengths.  A split past the length holds no row and reports m = -inf,
+//    l = 0.  The wrapper picks n_splits from shapes alone (split_count: up to
+//    two blocks per SM, so one wave).
 //  * One block serves one (sequence, kv head, split) and all H/K query heads
 //    of that group, so a cache byte is read once.  It walks its rows in trips
-//    of block_kv rows: eight lanes a row load K and V (16 bytes a lane for
-//    bf16 at dh = 64) and form the row's scores for every head; a warp a head
-//    turns a trip's scores into probabilities; a thread a (head, column)
-//    adds P V to its accumulator.  The running (m, l, acc) live in shared
-//    memory, so no thread carries per-head arrays: the kernel fits in 64
-//    registers and two blocks of 512 threads share an SM, and the splits of a
-//    serving step run in one wave.
+//    of block_kv rows: eight lanes a row load K and V into registers and form
+//    the row's scores for every head; a warp a head turns a trip's scores into
+//    probabilities; a thread a (head, column) adds P V to its accumulator.
+//    The running (m, l, acc) live in shared memory, so the kernel fits in 64
+//    registers and two blocks of 512 threads share an SM.  It keeps one trip
+//    (~32 KB an SM) in flight, with three block-wide phases between loads: at
+//    long caches it streams at ~28 % of the byte bound.
 //  * With one split the block writes the output itself.  Otherwise it writes
 //    its unnormalised (m, l, acc) to an fp32 scratch that the wrapper
-//    allocates, then counts itself done on a per-(sequence, kv head) counter
-//    (__threadfence, atomicAdd).  The last block of the group to finish
-//    merges the splits (each rescaled to the largest maximum, as the trips
-//    are), writes the output and sets the counter back to 0.  A second merge kernel would cost
-//    a launch per layer, and the host, not the card, bounds serving.
-//  * The counters are a zeroed int32 buffer that the wrapper keeps per
-//    device; it is 0 again after every launch, so it stays valid under CUDA
-//    graph capture.  Two launches that run at once on different streams of
-//    one device must not share it.
-//  * The cache is read in the type it is stored in (bf16 under an fp32
-//    query is widened in registers, which is exact).
+//    allocates and counts itself done on a per-(sequence, kv head) counter
+//    (__threadfence, atomicAdd); the last block of the group merges the
+//    splits, writes the output and sets the counter back to 0.
+//
+// decode_kernel_mma: bf16 query over a bf16 cache, dh a multiple of 16 up to
+// 128, H/K up to 16.  The cache is streamed by warps that wait on nothing but
+// their own copies:
+//  * Every warp streams through its own ring of MMA_STAGES stages of block_kv
+//    rows of K and V in shared memory, filled by cp.async (16 bytes a lane,
+//    straight to shared memory; rows past the end zero-filled, not read).  It
+//    issues the stage MMA_STAGES - 1 ahead, waits for its oldest and consumes
+//    it; no barrier spans warps inside a sequence.  At the decode_32k shape
+//    (block_kv 32, one block of 4 warps an SM) that is 3 stages of 8 KB in
+//    flight a warp, 96 KB an SM.
+//  * The group's query heads are the 16 rows of an mma.sync m16n8k16 tile (7
+//    used at qwen2's 14/2): S = Q K^T in f32 from exact bf16 products, the
+//    online softmax in f32 and base 2 on the fragments (a head's maximum and
+//    sum over the four lanes that hold it), and O += P V on the tensor cores
+//    with P = hi + lo, hi = bf16(P) and lo = bf16(P - hi): two products summed
+//    in f32, so P keeps ~16 bits (P rounded once to bf16 would keep 8).
+//  * Grid (K / gcd(K, 4), B, n_splits), the fma path's split: split s of
+//    sequence b takes the rows [s*r, min((s+1)*r, lengths[b])) with r =
+//    ceil(lengths[b] / n_splits), derived on the device.  The wrapper picks
+//    n_splits from shapes alone (mma_split_count: as many as fill one wave at
+//    the residency shared memory allows, and no more than keep the partials
+//    under 2 % of the cache's bytes).  A block takes gcd(K, 4) heads, so its
+//    warps read whole 256-byte rows at qwen2's two heads, and the 4 / gcd(K,
+//    4) warps of a head take its stages in turn; at the end they combine
+//    through shared memory (two block barriers).
+//  * With one split the block writes the output itself.  Otherwise each
+//    head's first warp writes its (m, l, acc) to the split's slot, counts
+//    itself done on the (sequence, head) counter, and the warp that finishes
+//    last merges the splits in their order, writes the output and sets the
+//    counter back to 0: one launch a call, safe under CUDA-graph capture.
+//
+// The counters are a zeroed int32 buffer that the wrapper keeps per device;
+// both kernels leave it 0 after every launch.  Two launches that run at once
+// on different streams of one device must not share it.  The cache is read
+// in the type it is stored in (bf16 under an fp32 query is widened in
+// registers, which is exact).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -422,6 +452,519 @@ cudaError_t launch_t(const DecodeParams& p, int threads, int n_splits, cudaStrea
   return cudaErrorInvalidValue;
 }
 
+// ===========================================================================
+// bf16 query over a bf16 cache: warps streaming through cp.async rings, the
+// group on the tensor cores
+// ===========================================================================
+
+constexpr int MMA_WARPS = 4;   // warps a block, each streaming on its own
+constexpr int MMA_STAGES = 4;  // ring stages a warp
+constexpr int MMA_MAX_G = 16;  // query heads a kv head: the rows of an m16n8k16 tile
+
+struct MmaParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const int* lengths;
+  __nv_bfloat16* o;
+  float* part;   // [B][K][n_splits][G][dh + 2]: acc[dh], m, l (n_splits > 1)
+  int* counter;  // [B * K], zero between launches (the same)
+  int B, H, K, dh, Smax;
+  long long q_b, q_h;
+  long long k_b, k_s, k_h;
+  long long v_b, v_s, v_h;
+  long long o_b, o_h;
+  float qscale;        // scale * log2(e)
+  int n_splits;
+  int warps_per_head;  // 4 / gcd(K, 4): the warps of a block that share a head's rows
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lane i gives the
+// address of row (i % 8) of matrix (i / 8); each thread gets, per matrix M,
+// the pair M[2t][g], M[2t+1][g] -- the B fragment of a row-major [k][n] tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// two consecutive bf16 of a query row as one A-fragment register (zero where not ok)
+__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* x, bool ok) {
+  if (!ok) return 0u;
+  return (uint32_t)__bfloat16_as_ushort(x[0]) | ((uint32_t)__bfloat16_as_ushort(x[1]) << 16);
+}
+
+// (x0, x1) as the sum of two bf16 pairs: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);  // .x = x0 = low 16 bits
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The last warp of a (sequence, kv head) merges its n_splits partials, in
+// their order: the weight of split s is 2^(m_s - M) / L, L the sum of
+// 2^(m_s - M) l_s; an empty cache (every m = -inf) gives weights 0, so exact
+// zeros.  (M, 1/L) of eight heads at a time over lanes a split each, kept in
+// `scratch` (the warp's own shared memory); then a lane a (head, column
+// pair), eight of them at a time.  Every load of a round is issued before
+// any is used (indices past the end are clamped, not branched around), so a
+// round costs one trip to L2.
+__device__ void merge_splits(const MmaParams& p, int b, int kvh, float* scratch) {
+  constexpr int NB = 8;  // heads, or items, a round
+  const int lane = threadIdx.x & 31;
+  const int G = p.H / p.K;
+  const int count = p.n_splits;
+  const int pstride = p.dh + 2;
+  const long long step = (long long)G * pstride;  // from split s to s + 1
+  const float* part0 = p.part + ((long long)b * p.K + kvh) * count * step;
+  for (int h0 = 0; h0 < G; h0 += NB) {
+    float M[NB], L[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      M[j] = -INFINITY;
+      L[j] = 0.f;
+    }
+    for (int s = lane; s < count; s += 32) {
+      float ms[NB], ls[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float* ps = part0 + s * step + min(h0 + j, G - 1) * pstride + p.dh;
+        ms[j] = __ldcg(ps);
+        ls[j] = __ldcg(ps + 1);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float mn = fmaxf(M[j], ms[j]);
+        if (mn != -INFINITY) L[j] = L[j] * exp2f(M[j] - mn) + ls[j] * exp2f(ms[j] - mn);
+        M[j] = mn;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float mo = __shfl_xor_sync(0xffffffffu, M[j], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, L[j], off);
+        const float mn = fmaxf(M[j], mo);
+        if (mn != -INFINITY) L[j] = L[j] * exp2f(M[j] - mn) + lo * exp2f(mo - mn);
+        M[j] = mn;
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        scratch[2 * (h0 + j)] = M[j];
+        scratch[2 * (h0 + j) + 1] = L[j] > 0.f ? 1.f / L[j] : 0.f;
+      }
+    }
+  }
+  __syncwarp();
+  const int pairs = p.dh / 2;
+  const int items = G * pairs;
+  __nv_bfloat16* ob = p.o + (long long)b * p.o_b + (long long)kvh * G * p.o_h;
+  for (int i0 = lane; i0 < items; i0 += 32 * NB) {
+    int at[NB], mo[NB];  // where the item's columns and its head's m lie in a slot
+    float mx[NB], inv[NB];
+    float2 out[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int idx = min(i0 + 32 * j, items - 1);
+      const int h = idx / pairs;
+      at[j] = h * pstride + 2 * (idx - h * pairs);
+      mo[j] = h * pstride + p.dh;
+      mx[j] = scratch[2 * h];
+      inv[j] = scratch[2 * h + 1];
+      out[j] = make_float2(0.f, 0.f);
+    }
+#pragma unroll 2
+    for (int s = 0; s < count; ++s) {
+      const float* ps = part0 + s * step;
+      float ms[NB];
+      float2 a[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        ms[j] = __ldcg(ps + mo[j]);
+        a[j] = __ldcg(reinterpret_cast<const float2*>(ps + at[j]));
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const float w = (ms[j] == -INFINITY) ? 0.f : exp2f(ms[j] - mx[j]) * inv[j];
+        out[j].x = fmaf(w, a[j].x, out[j].x);
+        out[j].y = fmaf(w, a[j].y, out[j].y);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int idx = i0 + 32 * j;
+      if (idx < items) {
+        const int h = idx / pairs;
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long long)h * p.o_h + 2 * (idx - h * pairs)) =
+            __floats2bfloat162_rn(out[j].x, out[j].y);
+      }
+    }
+  }
+}
+
+// One block streams one split of one sequence for HB = gcd(K, 4) kv heads,
+// 4 / HB warps a head taking its stages in turn (see the note at the top).
+// The fragments: lane (g, t) = (lane / 4, lane % 4) holds heads g and g + 8
+// of the group, and columns (rows of the stage in S, head dims in O) 2t,
+// 2t + 1 of each 8-wide tile.
+template <int DHP, int BKV>
+__global__ void __launch_bounds__(MMA_WARPS * 32, 2) decode_kernel_mma(const MmaParams p) {
+  typedef __nv_bfloat16 T;
+  constexpr int STR = DHP + 8;         // elements a staged row: 16 bytes of padding
+  constexpr int SLOT = 2 * BKV * STR;  // a stage: BKV rows of K, then BKV rows of V
+  constexpr int CPR = DHP / 8;         // 16-byte chunks a row
+  constexpr int NT = BKV / 8;          // 8-row tiles of a stage (the n of S)
+  constexpr int NV = DHP / 8;          // 8-column tiles of the head (the n of O)
+  constexpr int KC = DHP / 16;         // 16-column steps of Q K^T
+  constexpr int MSTR = DHP + 2;        // floats a head in the warps' merge area
+  static_assert((BKV * CPR) % 32 == 0 && NV % 2 == 0 && BKV % 16 == 0, "tile shapes");
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  T* ring = reinterpret_cast<T*>(smem4) + (size_t)warp * MMA_STAGES * SLOT;
+  // [warp][head][MSTR]: each warp's (acc, m, l) at the end
+  float* mrg = reinterpret_cast<float*>(reinterpret_cast<T*>(smem4) + (size_t)MMA_WARPS *
+                                                                        MMA_STAGES * SLOT);
+
+  const int wph = p.warps_per_head;
+  const int kvh = blockIdx.x * (MMA_WARPS / wph) + warp / wph;
+  const int sub = warp % wph;  // this warp's turn among its head's
+  const int b = blockIdx.y;
+  const int split = blockIdx.z;
+  const int G = p.H / p.K;
+  const bool upper = G > 8;  // heads 8..15 of the group: the fragments' second row
+  int len = p.lengths[b];
+  len = len < 0 ? 0 : (len > p.Smax ? p.Smax : len);
+  const int per = (len + p.n_splits - 1) / p.n_splits;
+  const int rb = min(split * per, len);
+  const int re = min(rb + per, len);  // this split's rows: [rb, re)
+  const int stride_rows = wph * BKV;  // from one of this warp's stages to its next
+
+  // the copies: this warp's stages through the split's rows; a stage is one
+  // cp.async group (an empty one past the end)
+  const T* kbase = p.k + (long long)b * p.k_b + (long long)kvh * p.k_h;
+  const T* vbase = p.v + (long long)b * p.v_b + (long long)kvh * p.v_h;
+  int pr = rb + sub * BKV;
+  auto issue = [&](int slot) {
+    if (pr < re) {
+      T* ks = ring + slot * SLOT;
+      T* vs = ks + BKV * STR;
+      const int n = min(BKV, re - pr);
+      const T* kr = kbase + (long long)pr * p.k_s;
+      const T* vr = vbase + (long long)pr * p.v_s;
+#pragma unroll
+      for (int i = 0; i < BKV * CPR / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const int r = idx / CPR;
+        const int c = (idx % CPR) * 8;
+        const bool ok = r < n && c < p.dh;  // else 16 zero bytes, nothing read
+        cp_async16(ks + r * STR + c, ok ? kr + r * p.k_s + c : kr, ok ? 16 : 0);
+        cp_async16(vs + r * STR + c, ok ? vr + r * p.v_s + c : vr, ok ? 16 : 0);
+      }
+      pr += stride_rows;
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < MMA_STAGES - 1; ++s) issue(s);
+
+  // the group's queries as A fragments: heads g and g + 8, zero past G
+  uint32_t qa[KC][4];
+  {
+    const T* qb = p.q + (long long)b * p.q_b + (long long)kvh * G * p.q_h;
+    const bool ok0 = g < G, ok1 = g + 8 < G;
+    const T* q0 = qb + (long long)(ok0 ? g : 0) * p.q_h;
+    const T* q1 = qb + (long long)(ok1 ? g + 8 : 0) * p.q_h;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const int c = kc * 16 + 2 * t;
+      const bool in = c < p.dh;  // dh is a multiple of 16: then c + 8 < dh too
+      qa[kc][0] = q_pair(q0 + c, ok0 && in);
+      qa[kc][1] = q_pair(q1 + c, ok1 && in);
+      qa[kc][2] = q_pair(q0 + c + 8, ok0 && in);
+      qa[kc][3] = q_pair(q1 + c + 8, ok1 && in);
+    }
+  }
+  float acc[NV][4];
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nv][i] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's share of the head's sum
+
+  int tile = 0;  // stages consumed
+  for (int r0 = rb + sub * BKV; r0 < re; r0 += stride_rows, ++tile) {
+    __syncwarp();  // every lane is done with the stage refilled now
+    issue((tile + MMA_STAGES - 1) % MMA_STAGES);
+    cp_async_wait<MMA_STAGES - 1>();
+    __syncwarp();  // every lane's copies of this stage are visible
+    const T* ks = ring + (tile % MMA_STAGES) * SLOT;
+    const T* vs = ks + BKV * STR;
+    const int n = min(BKV, re - r0);
+
+    // S = Q K^T: 16 heads x BKV rows, f32 sums of exact products
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+    }
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const T* kp = ks + (nt * 8 + g) * STR + kc * 16 + 2 * t;
+        mma_16816(s[nt], qa[kc], *reinterpret_cast<const uint32_t*>(kp),
+                  *reinterpret_cast<const uint32_t*>(kp + 8));
+      }
+    }
+
+    // base-2 logits, the stage's rows past n masked, each head's maximum
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool live = nt * 8 + 2 * t + (i & 1) < n;
+        s[nt][i] = live ? s[nt][i] * p.qscale : -INFINITY;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float m_safe = (m_new == -INFINITY) ? 0.f : m_new;  // nothing live yet
+      alpha[r] = exp2f(m[r] - m_safe);                           // m == -inf gives 0
+      m[r] = m_new;
+      mx[r] = m_safe;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i >= 2 && !upper) {
+          s[nt][i] = 0.f;  // no head in the second row
+        } else {
+          s[nt][i] = exp2f(s[nt][i] - mx[i >> 1]);  // a masked row gives exp2(-inf) = 0
+          psum[i >> 1] += s[nt][i];
+        }
+      }
+    }
+    l[0] = l[0] * alpha[0] + psum[0];
+    l[1] = l[1] * alpha[1] + psum[1];
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv) {
+      acc[nv][0] *= alpha[0];
+      acc[nv][1] *= alpha[0];
+      acc[nv][2] *= alpha[1];
+      acc[nv][3] *= alpha[1];
+    }
+
+    // O += P V with P = hi + lo: the S tiles 2kk and 2kk + 1 are the A
+    // fragments of 16 rows; V's B fragments by ldmatrix.trans, two 8-column
+    // tiles a load (lanes 0-15 address rows 0-15 of the first, 16-31 of the next)
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_pair(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      const T* vrow = vs + (kk * 16 + (lane & 15)) * STR + (lane >> 4) * 8;
+#pragma unroll
+      for (int nv = 0; nv < NV; nv += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vrow + nv * 8);
+        mma_16816(acc[nv], ph, vb[0], vb[1]);
+        mma_16816(acc[nv], pl, vb[0], vb[1]);
+        mma_16816(acc[nv + 1], ph, vb[2], vb[3]);
+        mma_16816(acc[nv + 1], pl, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // the heads' sums: the four lanes of a fragment row hold its shares
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  // the head's warps combined by its first (each lane its own elements),
+  // through shared memory
+  if (wph > 1) {
+    float* mine = mrg + (size_t)warp * MMA_MAX_G * MSTR;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int h = g + 8 * r;
+      if (h >= G) continue;
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv)
+        *reinterpret_cast<float2*>(mine + h * MSTR + nv * 8 + 2 * t) =
+            make_float2(acc[nv][2 * r], acc[nv][2 * r + 1]);
+      if (t == 0) {
+        mine[h * MSTR + DHP] = m[r];
+        mine[h * MSTR + DHP + 1] = l[r];
+      }
+    }
+    __syncthreads();
+    if (sub == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int h = g + 8 * r;
+        if (h >= G) continue;
+        float mn = m[r];
+        for (int o = 1; o < wph; ++o)
+          mn = fmaxf(mn, mrg[((size_t)(warp + o) * MMA_MAX_G + h) * MSTR + DHP]);
+        const float a0 = (m[r] == -INFINITY) ? 0.f : exp2f(m[r] - mn);
+        l[r] *= a0;
+#pragma unroll
+        for (int nv = 0; nv < NV; ++nv) {
+          acc[nv][2 * r] *= a0;
+          acc[nv][2 * r + 1] *= a0;
+        }
+        for (int o = 1; o < wph; ++o) {
+          const float* other = mrg + ((size_t)(warp + o) * MMA_MAX_G + h) * MSTR;
+          const float mo = other[DHP];
+          const float ao = (mo == -INFINITY) ? 0.f : exp2f(mo - mn);
+          l[r] = fmaf(ao, other[DHP + 1], l[r]);
+#pragma unroll
+          for (int nv = 0; nv < NV; ++nv) {
+            const float2 x = *reinterpret_cast<const float2*>(other + nv * 8 + 2 * t);
+            acc[nv][2 * r] = fmaf(ao, x.x, acc[nv][2 * r]);
+            acc[nv][2 * r + 1] = fmaf(ao, x.y, acc[nv][2 * r + 1]);
+          }
+        }
+        m[r] = mn;
+      }
+    }
+    __syncthreads();  // the area is read before any warp writes it again
+    if (sub != 0) return;
+  }
+
+  if (p.n_splits == 1) {
+    // the block holds the whole sequence: the output itself (an empty cache gives zeros)
+    T* ob = p.o + (long long)b * p.o_b + (long long)kvh * G * p.o_h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int h = g + 8 * r;
+      if (h >= G) continue;
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+#pragma unroll
+      for (int nv = 0; nv < NV; ++nv) {
+        const int c = nv * 8 + 2 * t;
+        if (c < p.dh)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)h * p.o_h + c) =
+              __floats2bfloat162_rn(acc[nv][2 * r] * inv, acc[nv][2 * r + 1] * inv);
+      }
+    }
+    return;
+  }
+
+  // this split's partial, then count it done; the last merges
+  const int pstride = p.dh + 2;
+  float* part = p.part + (((long long)b * p.K + kvh) * p.n_splits + split) * G * pstride;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int h = g + 8 * r;
+    if (h >= G) continue;
+    float* ph = part + h * pstride;
+#pragma unroll
+    for (int nv = 0; nv < NV; ++nv) {
+      const int c = nv * 8 + 2 * t;
+      if (c < p.dh)
+        *reinterpret_cast<float2*>(ph + c) = make_float2(acc[nv][2 * r], acc[nv][2 * r + 1]);
+    }
+    if (t == 0) {
+      ph[p.dh] = m[r];
+      ph[p.dh + 1] = l[r];
+    }
+  }
+  int* counter = p.counter + (long long)b * p.K + kvh;
+  __threadfence();  // this warp's partial is visible device-wide ...
+  __syncwarp();     // ... for every lane of it
+  int last = 0;
+  if (lane == 0) last = (atomicAdd(counter, 1) == p.n_splits - 1);
+  last = __shfl_sync(0xffffffffu, last, 0);
+  if (last) {
+    __threadfence();  // the other splits' partials are visible to this warp
+    merge_splits(p, b, kvh, mrg + (size_t)warp * MMA_MAX_G * MSTR);
+    if (lane == 0) *counter = 0;  // ready for the next launch
+  }
+}
+
+template <int DHP, int BKV>
+cudaError_t launch_mma_one(const MmaParams& p, dim3 grid, cudaStream_t stream) {
+  auto kern = decode_kernel_mma<DHP, BKV>;
+  const size_t smem =
+      (size_t)MMA_WARPS * MMA_STAGES * 2 * BKV * (DHP + 8) * sizeof(__nv_bfloat16) +
+      (size_t)MMA_WARPS * MMA_MAX_G * (DHP + 2) * sizeof(float);
+  // all of the SM's shared memory, so that as many blocks as fit are resident
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, MMA_WARPS * 32, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the (padded head width, block_kv) pairs whose rings fit a block's shared
+// memory (decode_attention.py: mma_smem_bytes)
+cudaError_t launch_mma(const MmaParams& p, int block_kv, dim3 grid, cudaStream_t stream) {
+  const int dhp = p.dh <= 16 ? 16 : p.dh <= 32 ? 32 : p.dh <= 64 ? 64 : 128;
+  switch (dhp * 1000 + block_kv) {
+    case 16016: return launch_mma_one<16, 16>(p, grid, stream);
+    case 16032: return launch_mma_one<16, 32>(p, grid, stream);
+    case 16064: return launch_mma_one<16, 64>(p, grid, stream);
+    case 32016: return launch_mma_one<32, 16>(p, grid, stream);
+    case 32032: return launch_mma_one<32, 32>(p, grid, stream);
+    case 32064: return launch_mma_one<32, 64>(p, grid, stream);
+    case 64016: return launch_mma_one<64, 16>(p, grid, stream);
+    case 64032: return launch_mma_one<64, 32>(p, grid, stream);
+    case 128016: return launch_mma_one<128, 16>(p, grid, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = fp32 query and cache, 1 = bf16 query and cache, 2 = fp32 query
@@ -462,4 +1005,45 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   else if (dtype == 1) e = launch_t<__nv_bfloat16, __nv_bfloat16>(p, threads, n_splits, st);
   else if (dtype == 2) e = launch_t<float, __nv_bfloat16>(p, threads, n_splits, st);
   return (int)e;
+}
+
+// bf16 query and cache on the tensor cores (decode_kernel_mma): dh a multiple
+// of 16 up to 128, H/K up to 16, block_kv rows a ring stage (see launch_mma
+// for the pairs compiled).  Grid (K / gcd(K, 4), B, n_splits).  n_splits > 1
+// needs `part` (B*H*n_splits*(dh+2) floats) and `counter` (B*K ints, all
+// zero; zero again when the kernel ends).  Strides in elements, the last
+// dimension contiguous, rows of K and V 16-byte aligned.  Returns the
+// cudaError_t of the launch (0 = launched).
+extern "C" int decode_attention_mma_fwd(const void* q, const void* k, const void* v,
+                                        const void* lengths, void* o, void* part, void* counter,
+                                        int B, int H, int K, int dh, int Smax, long long q_b,
+                                        long long q_h, long long k_b, long long k_s, long long k_h,
+                                        long long v_b, long long v_s, long long v_h,
+                                        long long o_b, long long o_h, float scale, int block_kv,
+                                        int n_splits, void* stream) {
+  if (B <= 0 || H <= 0) return (int)cudaSuccess;  // nothing to compute
+  if (K < 1 || H % K != 0 || H / K > 16 || dh < 16 || dh > 128 || dh % 16 != 0 || Smax < 1 ||
+      B > 65535 || n_splits < 1 || n_splits > 65535 ||
+      (n_splits > 1 && (part == nullptr || counter == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  int hb = MMA_WARPS;  // kv heads a block: gcd(K, 4)
+  while (K % hb != 0) hb /= 2;
+  MmaParams p;
+  p.q = reinterpret_cast<const __nv_bfloat16*>(q);
+  p.k = reinterpret_cast<const __nv_bfloat16*>(k);
+  p.v = reinterpret_cast<const __nv_bfloat16*>(v);
+  p.lengths = reinterpret_cast<const int*>(lengths);
+  p.o = reinterpret_cast<__nv_bfloat16*>(o);
+  p.part = reinterpret_cast<float*>(part);
+  p.counter = reinterpret_cast<int*>(counter);
+  p.B = B; p.H = H; p.K = K; p.dh = dh; p.Smax = Smax;
+  p.q_b = q_b; p.q_h = q_h;
+  p.k_b = k_b; p.k_s = k_s; p.k_h = k_h;
+  p.v_b = v_b; p.v_s = v_s; p.v_h = v_h;
+  p.o_b = o_b; p.o_h = o_h;
+  p.qscale = scale * 1.4426950408889634f;  // softmax in base 2
+  p.n_splits = n_splits;
+  p.warps_per_head = MMA_WARPS / hb;
+  return (int)launch_mma(p, block_kv, dim3(K / hb, B, n_splits),
+                         reinterpret_cast<cudaStream_t>(stream));
 }

@@ -89,9 +89,20 @@ def test_split_plain_bf16_cache_under_f32_query():
     ((8, 2, 40, 64, H100_SMS), 1),       # Smax < block_kv: one split
     ((8, 2, 8192, 64, H100_SMS), 16),    # a long cache: two blocks an SM at most
     ((1, 2, 32768, 32, H100_SMS), 132),
-], ids=["served", "wide_batch", "short_cache", "cache_8k", "cache_32k_b1"])
+    # the bf16 path (mma_split_count, group 7, dh 64)
+    (("mma", 8, 2, 576, 32, H100_SMS), 1),        # served: partials would pass 2 % of the cache
+    (("mma", 128, 2, 32768, 32, H100_SMS), 1),    # decode_32k: a sequence a block, 128 SMs
+    (("mma", 128, 2, 32768, 16, H100_SMS), 2),    # two blocks an SM fit: two a sequence
+    (("mma", 8, 2, 8208, 32, H100_SMS), 16),      # prefill_8k: 16 splits of each sequence
+    (("mma", 1, 2, 32768, 32, H100_SMS), 90),     # partials under 2 % of the cache
+], ids=["served", "wide_batch", "short_cache", "cache_8k", "cache_32k_b1", "mma_served",
+        "mma_decode_32k", "mma_decode_32k_stage16", "mma_prefill_8k", "mma_cache_32k_b1"])
 def test_split_count(args, want):
-    assert dec_mod.split_count(*args) == want
+    if args[0] == "mma":
+        B, K, Smax, block_kv, sms = args[1:]
+        assert dec_mod.mma_split_count(B, K, Smax, 7, 64, block_kv, sms) == want
+    else:
+        assert dec_mod.split_count(*args) == want
 
 
 def test_split_rows_cover_each_length_once():
@@ -113,6 +124,19 @@ def test_cpu_call_records_one_split_and_matches_jax():
     _close(got, want)
     assert dec_mod.decode_attention.last_splits == 1
     assert dec_mod.decode_attention.last_config == {"block_kv": 64}
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.float32, 64), (torch.bfloat16, 32)],
+                         ids=["f32", "bf16"])
+def test_cpu_call_records_the_routed_kernels_tiles(dtype, want):
+    """The runtime's default request (512) lowered per path: 64 rows of 8
+    threads for the f32 kernel, 32-row ring stages for the bf16 one."""
+    B, H, K, dh, Smax, lengths = DECODE_CASES["group7_ragged"]
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in (_np(12, B, H, 64), _np(13, B, Smax, K, 64),
+                                                        _np(14, B, Smax, K, 64)))
+    ops.decode_attention(q, k, v, torch.tensor(lengths, dtype=torch.int32), impl="cuda")
+    assert dec_mod.decode_attention.last_splits == 1
+    assert dec_mod.decode_attention.last_config == {"block_kv": want}
 
 
 # ---------------------------------------------------------------------------
